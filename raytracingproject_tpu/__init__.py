@@ -1,7 +1,8 @@
-"""raytracingproject_tpu — a TPU-native production path-tracing renderer.
+"""raytracingproject_tpu — a production path-tracing renderer in JAX.
 
 A ground-up rebuild of the capability surface of the reference renderer
-(Blender 2.91-alpha Cycles, `intern/cycles/`) designed for TPU hardware:
+(Blender 2.91-alpha Cycles, `intern/cycles/`) as batched array programs,
+run on an NVIDIA GPU:
 
 - The per-pixel megakernel integrator (ref: kernel/kernel_path.h) is replaced
   by a *wavefront* integrator: a host-driven loop of batched JAX/Pallas ops
@@ -12,7 +13,9 @@ A ground-up rebuild of the capability surface of the reference renderer
 - Multi-chip parallelism is `shard_map` over a `jax.sharding.Mesh` with XLA
   collectives (replacing MultiDevice fan-out and the NetworkDevice TCP RPC).
 - The BVH is built host-side (C++ SAH builder with a NumPy fallback) and
-  traversed on-device with stack-based batched traversal.
+  traversed on-device: a dense sweep for small scenes, a cluster walk
+  (one Pallas-Triton kernel on the GPU) for mid-size ones, a packed
+  lockstep BVH walk above that.
 
 Package layout:
   utils/     math, transforms, RNG, image IO, progress       (ref: util/)

@@ -17,11 +17,12 @@ import time
 def build_parser():
     p = argparse.ArgumentParser(
         prog="raytracingproject_tpu",
-        description="TPU-native path tracer (Cycles-capability rebuild)")
+        description="Wavefront path tracer (Cycles-capability rebuild)")
     p.add_argument("scene", nargs="?", help="XML scene file or "
                    "'example:cornell[:variant]'")
-    p.add_argument("--device", default="auto",
-                   help="auto|tpu|cpu|mesh (mesh = all local devices)")
+    p.add_argument("--device", default="gpu",
+                   choices=["gpu", "cpu", "mesh"],
+                   help="gpu (default), cpu, or mesh (all local GPUs)")
     p.add_argument("--samples", type=int, default=None)
     p.add_argument("--output", default="out.png")
     p.add_argument("--width", type=int, default=None)
@@ -58,17 +59,25 @@ def main(argv=None):
     from raytracingproject_tpu.utils import log
     log.init_logging(1 if args.verbose else 0)
 
-    if args.device == "cpu":
-        import os
-        os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
     if args.device == "cpu":
-        # env var alone is not honored once a PJRT plugin registered
         jax.config.update("jax_platforms", "cpu")
+    from raytracingproject_tpu.utils.compile_cache import \
+        enable_compile_cache
+    enable_compile_cache()
     if args.list_devices:
         for d in jax.devices():
-            print(f"{d.id}: {d.device_kind} ({d.platform})")
+            print(f"{d.id}: {d.platform} {d.device_kind}")
         return 0
+    if args.device in ("gpu", "mesh"):
+        platform = jax.devices()[0].platform
+        if platform != "gpu":
+            # never fall back: a GPU render that ran on the CPU would
+            # report the CPU's speed under the GPU's name
+            print(f"--device {args.device} needs a GPU, but JAX's "
+                  f"default device is '{platform}' (use --device cpu)",
+                  file=sys.stderr)
+            return 2
     if not args.scene:
         print("no scene file given (try 'example:cornell')",
               file=sys.stderr)
@@ -105,9 +114,9 @@ def main(argv=None):
     w, h = int(scene.camera.width), int(scene.camera.height)
     msps = w * h * sess.buffers.num_samples / max(time.time() - t0, 1e-9) / 1e6
     if not args.quiet:
-        total, rt = sess.progress.get_time()
         print(f"wrote {args.output} ({w}x{h}@{sess.buffers.num_samples}spp, "
-              f"{msps:.2f} Msamples/s)", file=sys.stderr)
+              f"{msps:.2f} Msamples/s including compile; "
+              f"{sess.stats.device_report()})", file=sys.stderr)
     return 0
 
 

@@ -14,7 +14,6 @@ refinement loop (Session.render_preview resolution dividers).
 
 from __future__ import annotations
 
-import io
 import json
 import threading
 import time
@@ -124,16 +123,14 @@ class ViewerState:
                     return
 
     def png_bytes(self):
-        from PIL import Image
+        from raytracingproject_tpu.utils.image_io import encode_png
         with self.lock:
             rgba = self.frame
         img = np.clip(rgba[::-1, :, :3], 0.0, 1.0)
         srgb = np.where(img <= 0.0031308, img * 12.92,
                         1.055 * np.power(np.maximum(img, 1e-8), 1 / 2.4)
                         - 0.055)
-        buf = io.BytesIO()
-        Image.fromarray((srgb * 255).astype(np.uint8)).save(buf, "PNG")
-        return buf.getvalue()
+        return encode_png((srgb * 255).astype(np.uint8))
 
     def status(self):
         cam = self.scene.camera

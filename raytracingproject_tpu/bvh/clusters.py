@@ -1,14 +1,14 @@
 """Host-side BVH tree cut into triangle clusters.
 
-TPU-native traversal (ops/cluster_intersect.py) replaces per-lane
-pointer chasing with a flat cluster list: the BVH is cut into maximal
-subtrees of <= cluster_tris primitives; each cluster becomes one wide
-row fetched with a one-hot MXU lookup (zero gathers). The builder's
+Cluster traversal (ops/cluster_intersect.py, ops/cluster_walk_gpu.py)
+replaces per-lane pointer chasing with a flat cluster list: the BVH is
+cut into maximal subtrees of <= cluster_tris primitives; each cluster
+becomes one wide row, fetched with a single row gather. The builder's
 depth-first prim_order guarantees every subtree covers a contiguous
 prim range, so a cluster is just (start, count) + a tight AABB.
 
 Replaces the role of the reference's packed BVH layout for the
-1k-32k-prim regime (ref: bvh/bvh2.cpp pack_nodes, consumed by
+1k-40k-prim regime (ref: bvh/bvh2.cpp pack_nodes, consumed by
 kernel/bvh/bvh_traversal.h:34-229 — redesigned: the traversal loop's
 "which node next" becomes a data-parallel min-reduction over all
 cluster entry distances, giving front-to-back order with ~3-10
@@ -99,50 +99,6 @@ def cut_clusters(children, cluster_tris):
     for s, c in out:
         assert s == end, f"cluster ranges not contiguous: {s} != {end}"
         end = s + c
-    return out
-
-
-def group_superclusters(cluster_ranges, super_ranges, gmax):
-    """Group clusters into superclusters (the two-level walk's level 0,
-    ops/pallas_cluster.py intersect_clusters2_pallas).
-
-    cluster_ranges / super_ranges: sorted contiguous (start, count)
-    prim ranges from cut_clusters at fine/coarse budgets on the SAME
-    tree — every cluster range nests inside exactly one super range
-    (both are maximal-subtree cuts, clusters from deeper cuts).
-    Groups bigger than gmax are split into consecutive chunks (still
-    subtree-ordered, so their union bounds stay coherent).
-
-    Returns [(cstart, gcount)] in CLUSTER-INDEX space, covering every
-    cluster exactly once, each gcount <= gmax.
-    """
-    groups = []
-    ci = 0
-    for (ss, sc) in super_ranges:
-        c0 = ci
-        send = ss + sc
-        while ci < len(cluster_ranges) \
-                and cluster_ranges[ci][0] < send:
-            s, c = cluster_ranges[ci]
-            assert s >= ss and s + c <= send, \
-                f"cluster {(s, c)} not nested in super {(ss, sc)}"
-            ci += 1
-        for k in range(c0, ci, gmax):
-            groups.append((k, min(gmax, ci - k)))
-    assert ci == len(cluster_ranges), "clusters left ungrouped"
-    return groups
-
-
-def supercluster_bounds(cb_lo_hi, groups):
-    """(SC, 8) supercluster rows: union AABB + (cstart, gcount) as f32
-    (counts < 2^24). cb_lo_hi: (C, 6) packed cluster bounds."""
-    out = np.zeros((len(groups), 8), np.float32)
-    for i, (cs, gc) in enumerate(groups):
-        out[i, 0:3] = cb_lo_hi[cs:cs + gc, 0:3].min(0)
-        out[i, 3:6] = cb_lo_hi[cs:cs + gc, 3:6].max(0)
-        out[i, 6] = cs
-        out[i, 7] = gc
-        assert cs < (1 << 24) and gc < (1 << 24)
     return out
 
 

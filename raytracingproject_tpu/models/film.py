@@ -67,7 +67,7 @@ FILTER_BLACKMAN_HARRIS = 2
 
 # The reference uses 1024 entries (render/film.cpp FILTER_TABLE_SIZE);
 # 128 + lerp is visually identical for these smooth CDFs and keeps the
-# per-sample lookup in the cheap one-hot regime on TPU.
+# per-sample lookup table small.
 FILTER_TABLE_SIZE = 128
 
 

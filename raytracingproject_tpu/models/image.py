@@ -1,10 +1,10 @@
 """Image manager (ref: render/image.h ImageManager, render/image_oiio.cpp).
 
 Collects every image referenced by ImageTexture/EnvironmentTexture nodes,
-loads files (PIL) or takes raw arrays, converts to linear float32 RGBA
-and packs them into one padded (slots, Hmax, Wmax, 4) device array.
-Shader nodes hold *static* slot ints, so per-node sampling is a static
-slice + dynamic (u, v) gather — the TPU-friendly texture layout.
+loads files (utils/image_io.read_image) or takes raw arrays, converts
+to linear float32 RGBA and packs them into one padded
+(slots, Hmax, Wmax, 4) device array. Shader nodes hold *static* slot
+ints, so per-node sampling is a static slice + dynamic (u, v) gather.
 """
 
 from __future__ import annotations

@@ -75,8 +75,8 @@ class Integrator(Node):
         # adaptive sampling (ref: integrator.h:79-82)
         S("adaptive_threshold", S.FLOAT, 0.0),
         S("adaptive_min_samples", S.INT, 0),
-        # material-sorted shading (ref: kernel_shader_sort.h; TPU
-        # analog: shade.eval_shaders_sorted). auto = on when the
+        # material-sorted shading (ref: kernel_shader_sort.h; here
+        # shade.eval_shaders_sorted). auto = on when the
         # scene's shader count/size makes the sort profitable.
         S("material_sort", S.ENUM, "auto",
           {"auto": 0, "on": 1, "off": 2}),

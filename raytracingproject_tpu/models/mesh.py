@@ -250,7 +250,7 @@ class Hair(Geometry):
     def tessellate_ribbons(self):
         """Curves -> twisted triangle ribbons (host-side; the analog of
         the reference's curve-to-mesh export paths — keeps hair on the
-        dense/BVH triangle pipeline that suits the TPU; true curve
+        dense/BVH triangle pipeline; true curve
         intersection ref kernel/geom/geom_curve_intersect.h is a later
         refinement). Returns a Mesh with per-curve ribbons, uv.v along
         the strand, and the curve shader per triangle."""

@@ -1,6 +1,6 @@
 """Shader graphs (ref: render/graph.h ShaderGraph, render/shader.h Shader).
 
-TPU-first compilation model: where the reference compiles a graph to SVM
+Compilation model: where the reference compiles a graph to SVM
 `int4` bytecode interpreted divergently per ray (render/svm.cpp:828,
 kernel/svm/svm.h), we *trace* the graph: topological evaluation of jnp
 ops over the whole wavefront, producing a fixed-slot closure union

@@ -937,7 +937,7 @@ class ImageTextureNode(ShaderNode):
               # trilinear minification over a packed mip pyramid; the
               # lod comes from a first-hit footprint estimate
               # (ray_length x camera pixel angle x the triangle's own
-              # uv density) — the TPU stand-in for the CPU path's
+              # uv density) — the wavefront stand-in for the CPU path's
               # ray-differential footprints (kernel_differential.h)
               S("use_auto_mip", S.BOOLEAN, False)]
 
@@ -1027,8 +1027,8 @@ class CheckerTextureNode(ShaderNode):
         # ref: svm_checker.h — offset avoids seams at integer coords
         p = p * scale[..., None] + 1e-5
 
-        # Analytic box filter over the shading footprint (the TPU-native
-        # answer to the point-sampled checker's decision-flip noise: a
+        # Analytic box filter over the shading footprint (the answer to
+        # the point-sampled checker's decision-flip noise: a
         # hit-position perturbation of eps flips a point sample O(1) but
         # moves the filtered value only O(eps / width)). Exact: the mean
         # of (-1)^(ix+iy+iz) over an axis-aligned box factorizes into

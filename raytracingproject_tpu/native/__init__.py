@@ -1,14 +1,19 @@
 """Native C++ host components, loaded via ctypes (no pybind11 in the
 image; ref: the reference's C++ host core).
 
-The shared library is compiled on first use with g++ -O3 and cached next
-to the sources; a NumPy fallback exists for every native path so the
-framework works without a toolchain.
+The shared library is compiled with g++ on first use, on the machine
+that runs it, into `<repo>/build/native/` (listed in .gitignore). Its
+file name carries a hash of the sources and the compiler command, so a
+changed source or flag builds a new library and a stale one is never
+loaded. The flags name no host CPU (no -march=native), so a library
+built on one x86-64 host also runs on another. A NumPy fallback exists
+for every native path, so the renderer works without a toolchain.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -18,41 +23,41 @@ import numpy as np
 from raytracingproject_tpu.utils import log
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)),
+                         "build", "native")
+CXXFLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread")
 _LIB = None
 _LOCK = threading.Lock()
 _FAILED = False
 
 
+def _sources():
+    return sorted(os.path.join(_HERE, f) for f in os.listdir(_HERE)
+                  if f.endswith(".cpp"))
+
+
+def build_key(sources, flags=CXXFLAGS):
+    """Hash of the sources' bytes and the compiler flags: the library's
+    name, so any change to either builds a fresh library."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for s in sources:
+        h.update(os.path.basename(s).encode() + b"\0")
+        with open(s, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
 def _compile_lib():
-    srcs = sorted(
-        os.path.join(_HERE, f) for f in os.listdir(_HERE)
-        if f.endswith(".cpp"))
-    out = os.path.join(_HERE, "librtp_native.so")
-    if (os.path.exists(out)
-            and all(os.path.getmtime(out) >= os.path.getmtime(s)
-                    for s in srcs)):
+    srcs = _sources()
+    out = os.path.join(BUILD_DIR, f"librtp_native-{build_key(srcs)}.so")
+    if os.path.exists(out):
         return out
-
-    def compile_to(sources, extra):
-        cmd = ["g++", "-O3", "-march=native", "-fPIC", "-shared",
-               "-std=c++17", "-pthread", *sources, "-o", out + ".tmp",
-               *extra]
-        subprocess.run(cmd, check=True, capture_output=True)
-        os.replace(out + ".tmp", out)
-        return out
-
-    try:
-        return compile_to(srcs, ["-lz"])
-    except Exception:
-        # the EXR codec needs zlib; a host without it must not lose
-        # the (dependency-free) BVH builder — fall back to compiling
-        # only the sources that link clean
-        core = [s for s in srcs if "exr_codec" not in s]
-        if core != srcs:
-            log.log_warning("native EXR codec unavailable (zlib link "
-                            "failed); compiling without it")
-            return compile_to(core, [])
-        raise
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    subprocess.run(["g++", *CXXFLAGS, *srcs, "-o", tmp], check=True,
+                   capture_output=True)
+    os.replace(tmp, out)
+    return out
 
 
 def get_lib():
@@ -76,27 +81,8 @@ def get_lib():
                 ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)),
             ]
             lib.rtp_free.argtypes = [ctypes.c_void_p]
-            try:  # EXR codec symbols absent when zlib link failed
-                lib.rtp_exr_write.restype = ctypes.c_int
-                lib.rtp_exr_write.argtypes = [
-                    ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_char_p,
-                    ctypes.POINTER(ctypes.c_float),
-                    ctypes.c_int, ctypes.c_int]
-                lib.rtp_exr_info.restype = ctypes.c_int
-                lib.rtp_exr_info.argtypes = [
-                    ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
-                    ctypes.POINTER(ctypes.c_int),
-                    ctypes.POINTER(ctypes.c_int),
-                    ctypes.c_char_p, ctypes.c_int]
-                lib.rtp_exr_read.restype = ctypes.c_int
-                lib.rtp_exr_read.argtypes = [
-                    ctypes.c_char_p, ctypes.POINTER(ctypes.c_float)]
-                lib._has_exr = True
-            except AttributeError:
-                lib._has_exr = False
             _LIB = lib
-        except Exception as e:  # pragma: no cover - toolchain missing
+        except (OSError, subprocess.CalledProcessError) as e:
             log.log_warning("native lib unavailable (%s); using NumPy "
                             "fallbacks", e)
             _FAILED = True
@@ -131,70 +117,3 @@ def build_bvh_native(lo, hi, max_leaf_size=4):
     lib.rtp_free(out_children)
     lib.rtp_free(out_order)
     return bounds, children, order
-
-
-# --------------------------------------------------------------------------
-# Native OpenEXR codec (native/exr_codec.cpp; ZIP via zlib). The Python
-# codec in utils/exr.py is the portable fallback and parity twin.
-# --------------------------------------------------------------------------
-
-EXR_COMP_NONE = 0
-EXR_COMP_ZIPS = 2
-EXR_COMP_ZIP = 3
-
-
-def exr_write_native(path, channels, half=False, compression=EXR_COMP_ZIP):
-    """channels: {name: (H, W) float32}. Returns True on success,
-    False if the native lib is unavailable (caller falls back)."""
-    lib = get_lib()
-    if lib is None or not getattr(lib, "_has_exr", False):
-        return False
-    names = sorted(channels)
-    arrs = [np.ascontiguousarray(channels[n], np.float32) for n in names]
-    h, w = arrs[0].shape
-    for n, a in zip(names, arrs):
-        if a.shape != (h, w):
-            raise ValueError(f"channel {n} shape {a.shape} != {(h, w)}")
-    data = np.ascontiguousarray(np.stack(arrs, axis=0))
-    names_blob = b"".join(n.encode() + b"\0" for n in names)
-    rc = lib.rtp_exr_write(
-        str(path).encode(), w, h, len(names), names_blob,
-        data.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        1 if half else 0, int(compression))
-    if rc != 0:
-        raise IOError(f"native EXR write failed (rc={rc}): {path}")
-    return True
-
-
-def exr_read_native(path):
-    """Returns {name: (H, W) float32} or None if the native lib is
-    unavailable / the file needs the Python fallback. Raises on a
-    corrupt file."""
-    lib = get_lib()
-    if lib is None or not getattr(lib, "_has_exr", False):
-        return None
-    w = ctypes.c_int()
-    h = ctypes.c_int()
-    n_ch = ctypes.c_int()
-    cap = 1 << 16
-    buf = ctypes.create_string_buffer(cap)
-    rc = lib.rtp_exr_info(str(path).encode(), ctypes.byref(w),
-                          ctypes.byref(h), ctypes.byref(n_ch), buf, cap)
-    if rc < 0:  # names buffer too small
-        cap = -rc
-        buf = ctypes.create_string_buffer(cap)
-        rc = lib.rtp_exr_info(str(path).encode(), ctypes.byref(w),
-                              ctypes.byref(h), ctypes.byref(n_ch), buf,
-                              cap)
-    if rc in (5, 6, 7, 9):
-        return None  # feature outside the native subset -> fallback
-    if rc != 0:
-        raise IOError(f"native EXR read failed (rc={rc}): {path}")
-    names = bytes(buf.raw).split(b"\0")[:n_ch.value]
-    out = np.empty((n_ch.value, h.value, w.value), np.float32)
-    rc = lib.rtp_exr_read(
-        str(path).encode(),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
-    if rc != 0:
-        raise IOError(f"native EXR read failed (rc={rc}): {path}")
-    return {n.decode(): out[i] for i, n in enumerate(names)}

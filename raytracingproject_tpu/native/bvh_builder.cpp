@@ -1,6 +1,6 @@
 // Native binned-SAH BVH2 builder (ref: bvh/bvh_build.cpp BVHBuild,
 // bvh/bvh_binning.cpp — re-implemented for the SoA node layout used by
-// the TPU traversal, see bvh/build.py for the layout contract).
+// the traversal kernels, see bvh/build.py for the layout contract).
 //
 // C ABI consumed via ctypes (no pybind11 in this image). The output
 // arrays follow exactly the Python builder's contract:
@@ -14,7 +14,6 @@
 // reference's TBB task recursion, bvh_build.cpp:415-524).
 
 #include <algorithm>
-#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -67,9 +66,10 @@ struct Builder {
   std::vector<V3> cent;
   int max_leaf;
   std::vector<Node> nodes;
-  std::vector<int32_t> prim_out;
-  std::mutex mu;  // guards nodes + prim_out growth
-  std::atomic<int> active_tasks{0};
+  // the build partitions this array in place; when it ends, it is the
+  // prim order and every subtree covers one contiguous range of it
+  int32_t *idx_base = nullptr;
+  std::mutex mu;  // guards nodes growth
 
   int new_node() {
     std::lock_guard<std::mutex> g(mu);
@@ -77,10 +77,10 @@ struct Builder {
     return (int)nodes.size() - 1;
   }
 
-  int32_t leaf_child(const int32_t *idx, int n) {
-    std::lock_guard<std::mutex> g(mu);
-    int start = (int)prim_out.size();
-    for (int i = 0; i < n; i++) prim_out.push_back(idx[i]);
+  // a leaf's prims are its slice of idx_base, so leaves built by
+  // different threads never interleave
+  int32_t leaf_child(const int32_t *idx, int n) const {
+    int start = (int)(idx - idx_base);
     return -(1 + (start << 4) + n);
   }
 
@@ -264,10 +264,10 @@ int rtp_build_bvh(const float *lo, const float *hi, int nprims,
                    0.5f * (lo[3 * i + 2] + hi[3 * i + 2]));
   }
   b.nodes.reserve(std::max(2 * nprims / std::max(max_leaf_size, 1), 16));
-  b.prim_out.reserve(nprims);
 
   std::vector<int32_t> idx(nprims);
   for (int i = 0; i < nprims; i++) idx[i] = i;
+  b.idx_base = idx.data();
 
   if (nprims == 0) {
     b.nodes.emplace_back();
@@ -290,9 +290,8 @@ int rtp_build_bvh(const float *lo, const float *hi, int nprims,
   }
   *out_nnodes = nn;
   *out_prim_order =
-      (int32_t *)std::malloc(sizeof(int32_t) * std::max((int)b.prim_out.size(), 1));
-  std::memcpy(*out_prim_order, b.prim_out.data(),
-              sizeof(int32_t) * b.prim_out.size());
+      (int32_t *)std::malloc(sizeof(int32_t) * std::max(nprims, 1));
+  std::memcpy(*out_prim_order, idx.data(), sizeof(int32_t) * nprims);
   return 0;
 }
 

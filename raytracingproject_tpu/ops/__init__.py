@@ -1,6 +1,6 @@
 """Device-side compute ops (ref: intern/cycles/kernel/).
 
 Everything here is jnp-traceable, shape-static, and batched over SoA ray
-wavefronts — the TPU replacement for the reference's per-thread
+wavefronts — the replacement for the reference's per-thread
 megakernel code.
 """

@@ -445,7 +445,7 @@ def bsdf_eval(c, N, I, omega_in, features=None, want_components=False,
     contribute nothing (ref: _shader_bsdf_multi_eval).
 
     `features` (dict of static bools from scene analysis) prunes unused
-    lobes at trace time — the TPU analog of the reference's
+    lobes at trace time — the analog of the reference's
     feature-specialized kernel builds (device.h:228 get_build_options)."""
     ft = features or {}
     has_glossy = ft.get("has_glossy", True)
@@ -875,8 +875,8 @@ def _ms_tables_np():
 
 
 def _ms_energy_lookup(mu, rough):
-    """Bilinear E(mu, rough) via one-hot reductions (no dynamic gathers
-    — docs/PERF.md). mu, rough: (N,)."""
+    """Bilinear E(mu, rough) via one-hot reductions (no dynamic
+    gathers). mu, rough: (N,)."""
     E, _ = _ms_tables_np()
     tab = jnp.asarray(E.reshape(-1))                          # (M*R,)
     fm = jnp.clip(mu * MS_TABLE_MU - 0.5, 0.0, MS_TABLE_MU - 1.0)

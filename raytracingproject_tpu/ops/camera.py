@@ -25,8 +25,8 @@ PANORAMA_MIRRORBALL = 3
 
 
 def _apply_t(m, p):
-    # exact component math — batched tiny @ lowers to bf16 MXU on TPU
-    # (see utils/math.py mat34_point)
+    # exact component math — a batched tiny float32 @ may run in TF32
+    # on the GPU (see utils/math.py mat34_point)
     return um.mat34_point(m[..., :3, :4], p)
 
 

@@ -2,8 +2,9 @@
 ShaderClosure array in kernel/kernel_types.h SD storage).
 
 The reference stores a variable-length ShaderClosure array per shading
-point and dispatches on closure type at runtime. On TPU, variable-length
-per-lane unions defeat vectorization, so a shader evaluates to a
+point and dispatches on closure type at runtime. Over a wavefront,
+variable-length per-lane unions defeat vectorization, so a shader
+evaluates to a
 *fixed set of weighted closure slots* (SoA over the wavefront):
 
   emission       — light emission (3)

@@ -1,27 +1,28 @@
-"""Cluster-shortlist scene intersection — the TPU-native traversal.
+"""Cluster-shortlist scene intersection in plain XLA.
 
 Replaces the per-lane BVH walk (ref: kernel/bvh/bvh_traversal.h:34-229)
-for the 1k-32k-prim regime. Rationale (measured, docs/PERF.md): a
-dynamic row gather costs ~0.7 ms per 256k-lane wavefront and a lockstep
-BVH walk needs ~150 of them; per-lane dynamic addressing has no fast
-form on TPU. Instead the BVH is cut into <= 512 clusters of
+for the 1k-40k-prim regime. The BVH is cut into <= 640 clusters of
 <= cluster_tris triangles (bvh/clusters.py) and traversal becomes three
-gather-free primitives:
+data-parallel steps:
 
 1. one slab-test sweep materializes every lane's entry distance to
-   every cluster — a (C, N) VPU pass run ONCE per intersect;
+   every cluster — a (C, N) pass run ONCE per intersect;
 2. each iteration picks each lane's nearest unprocessed cluster by a
    min/select-reduction over that table (front-to-back order for free,
-   so closest-hit converges in ~3-10 iterations);
+   so closest-hit converges in a few iterations);
 3. the chosen cluster row (triangles + prim ids + visibility + w2o,
-   all finite f32 payloads) is fetched with the one-hot MXU lookup
-   (ops/lookup.py, ~0.3 ms) and intersected with dense VPU math.
+   all finite f32 payloads) is gathered per lane and intersected with
+   dense elementwise math.
 
 Instancing (TLAS/BLAS) is folded in: every instance contributes its
 BLAS clusters with world-space bounds and its world->object transform
 in the row; rays transform per lane after the fetch, with t preserved
 (directions not renormalized) so hit compares stay global — the same
 contract as ops/intersect.py.
+
+This is the CPU path and the reference the GPU kernel
+(ops/cluster_walk_gpu.py) is tested against: both visit clusters in the
+same order.
 """
 
 from __future__ import annotations
@@ -32,22 +33,19 @@ import jax
 import jax.numpy as jnp
 
 from raytracingproject_tpu.utils.math import RAY_TMAX
-from raytracingproject_tpu.ops import lookup as lk
 from raytracingproject_tpu.ops import intersect as isect
 
 INF = prec.FT(3e38)
 # row layout: [w2o(12), pad(1)] [tris: v0,e1,e2 (9 per tri)]
 # [prim id per tri] [object id per tri] [visibility per tri]
 META_COLS = 13
-# measured on v5e (tools/cluster_tune.py): small chunks win (worst-lane
-# convergence dominates big chunks) and small clusters beat big ones
-# (finer culling outweighs the extra selection rows)
+# lanes per while_loop chunk: bounds the (C, chunk) entry table; small
+# chunks stop worst-lane convergence from holding up many lanes. Set on
+# the earlier accelerator (tools/cluster_tune.py); not measured on the
+# H100.
 DEFAULT_CHUNK = 8192
-# clusters fetched+tested per traversal iteration. Measured on v5e
-# (tools/cluster_tune.py round 2): width 2 halves iterations but the
-# doubled one-hot contraction costs more than it saves (113 vs 83 ms
-# at 5.9k prims / 256k lanes) -> default 1; the option stays for
-# future shapes where fetch overhead dominates.
+# clusters fetched+tested per traversal iteration; 1 won on the earlier
+# accelerator, not measured on the H100
 DEFAULT_FETCH_WIDTH = 1
 
 
@@ -98,7 +96,7 @@ def pack_cluster_table(clusters_np):
         base3 = base2 + ct
         table[i, base3:base3 + k] = np.asarray(cl["vis"], np.float32)
         assert np.all(np.abs(cl["prim"]) < (1 << 24))
-    assert np.isfinite(table).all(), "one-hot payloads must be finite"
+    assert np.isfinite(table).all(), "cluster payloads must be finite"
     return bounds, table, ct, motion
 
 
@@ -155,22 +153,8 @@ def _intersect_chunk(cbounds, ctable, cluster_tris, o, d, tmin, tmax,
         cid = cid_list[0][0]
 
         # fetch the cluster row(s) for every lane in (W, N) orientation
-        # so each component below is a contiguous lane vector. On TPU
-        # the one-hots are concatenated to (C, fw*N) and contracted
-        # from the left on the MXU in ONE matmul (HIGHEST precision
-        # keeps f32 payloads bit-exact); on CPU (no MXU, cheap gathers)
-        # a plain row gather wins.
-        if jax.default_backend() == "tpu":
-            oh = jnp.concatenate(
-                [(cids == cl[0][None]).astype(prec.FT)
-                 for cl in cid_list], axis=1)               # (C, fw*N)
-            rows = jnp.dot(ctable.T, oh,
-                           precision=jax.lax.Precision.HIGHEST,
-                           preferred_element_type=prec.FT)
-            row_list = [rows[:, k * n:(k + 1) * n]
-                        for k in range(fetch_width)]
-        else:
-            row_list = [ctable[cl[0]].T for cl in cid_list]
+        # so each component below is a contiguous lane vector
+        row_list = [ctable[cl[0]].T for cl in cid_list]
 
         tri_w = 18 if has_motion else 9
         pbase = META_COLS + tri_w * cluster_tris

@@ -1,6 +1,6 @@
 """Oriented (unaligned) curve-segment clusters — hair traversal.
 
-The TPU analog of the reference's unaligned BVH nodes for hair
+The analog of the reference's unaligned BVH nodes for hair
 (ref: bvh/bvh_unaligned.{h,cpp}, kernel/bvh/bvh_traversal.h): long thin
 curve clusters fit axis-aligned boxes terribly, so each cluster of K
 consecutive segments (strand order = spatial coherence) carries its own
@@ -12,9 +12,8 @@ how the reference's unaligned nodes test `aligned_space` boxes, but
 vectorized cluster-major instead of per-thread.
 
 Traversal mirrors ops/cluster_intersect.py's shortlist walk: per-lane
-nearest live cluster by select-reduction, one one-hot MXU row fetch per
-iteration (rows <= 512 for the MXU path, docs/PERF.md), K in-lane
-ribbon tests per fetched row. Replaces the dense all-segments sweep of
+nearest live cluster by select-reduction, one row gather per iteration,
+K in-lane ribbon tests per fetched row. Replaces the dense all-segments sweep of
 ops/intersect.py intersect_curves_ribbon above the packing threshold
 (models/scene.py CURVE_CLUSTER_MIN_SEGS); both paths share
 _curve_block_test-equivalent math, so hits agree.
@@ -135,13 +134,7 @@ def _walk_chunk(ctable, cluster_segs, prim_base, o, d, tmin, tmax,
         cid = jnp.maximum(jnp.max(jnp.where(win, cids, -1), axis=0), 0)
         active = e_min < gate
 
-        if jax.default_backend() == "tpu":
-            oh = (cids == cid[None]).astype(prec.FT)            # (C, N)
-            row = jnp.dot(ctable.T, oh,
-                          precision=jax.lax.Precision.HIGHEST,
-                          preferred_element_type=prec.FT)       # (W, N)
-        else:
-            row = ctable[cid].T
+        row = ctable[cid].T
 
         seg_start = row[15]
         for kk in range(cluster_segs):

@@ -2,7 +2,7 @@
 denoising pipeline — device/device_denoising.h DenoisingTask +
 kernel/filter/* prefilter/construct/reconstruct stages).
 
-TPU redesign: instead of per-tile pointer-walking filter kernels, the
+Redesign: instead of per-tile pointer-walking filter kernels, the
 whole frame is denoised as a batch of shifted-image operations — for
 every offset in the search window the patch distance is a box-filtered
 squared difference (pure convolutions/rolls, no gathers), optionally
@@ -106,7 +106,7 @@ def denoise_buffers(combined_rgba, albedo=None, normal=None, depth=None,
     keep rendering on the primary device; np.asarray() it to wait.
 
     method: "nlm" | "kpcn" | "auto". "kpcn" is the learned
-    kernel-predicting denoiser (ops/kpcn.py; the TPU-native analog of
+    kernel-predicting denoiser (ops/kpcn.py; the analog of
     the reference's OptiX/OIDN backends, device_optix.cpp:669 /
     device_cpu.cpp:952). "auto" currently resolves to NLM: the round-5
     held-out A/B (tools/kpcn_train.py, dof scene vs 1024 spp) measured

@@ -7,7 +7,7 @@ spherical-Gaussian M_p, azimuthal trimmed-logistic N_p).
 
 Everything is batched SoA over the wavefront: the four lobes are
 evaluated densely with select-reductions (no per-lane branching), which
-is the TPU-native shape — ~60 fused elementwise ops per lane, no
+is the wavefront shape — ~60 fused elementwise ops per lane, no
 gathers.
 
 Conventions: the local hair frame is X = curve tangent, (Y, Z) the

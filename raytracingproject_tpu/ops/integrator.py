@@ -7,11 +7,11 @@ camera ray generation -> [intersect -> lamp/background MIS emission ->
 shade -> NEE + MIS -> bounce] x max_bounce -> film accumulate, all as
 batched SoA ops under `lax.fori_loop`. Dead lanes are masked, not
 compacted (compaction/sorting is an optimization layered on top in
-parallel/; masked VPU math is cheap on TPU for Cornell-class depth).
+parallel/; masked elementwise math is cheap for Cornell-class depth).
 
 Static configuration (bounce limits, sampler pattern, brute-vs-BVH) is
 Python-level so XLA specializes the kernel per scene feature set — the
-TPU analog of the reference's feature-pruned kernel compiles
+analog of the reference's feature-pruned kernel compiles
 (DeviceRequestedFeatures::get_build_options, device/device.h:228).
 """
 
@@ -50,7 +50,7 @@ def _merge_curve_hit(kg, hit, o, d, tmin, visibility):
     """Sweep native hair segments and merge into `hit` by min-t.
 
     Curves live OUTSIDE the BVH in their own dense SoA table (ref
-    capability: kernel/geom/geom_curve_intersect.h; TPU redesign:
+    capability: kernel/geom/geom_curve_intersect.h; redesign:
     ops/intersect.py intersect_curves_ribbon docstring)."""
     ds = kg["dscene"]
     if "curve_p0" not in ds:
@@ -103,69 +103,17 @@ def _scene_intersect(kg, o, d, tmin, tmax, visibility, shadow=False,
     return _merge_curve_hit(kg, hit, o, d, tmin, visibility)
 
 
-def _use_pallas_clusters(kg):
-    """Cluster-path backend select: the Pallas tile-shared walk on TPU
-    (kg["pallas_clusters"]: True/False forces; "auto"/absent = TPU
-    only — the XLA path stays the CPU/parity twin)."""
-    mode = kg.get("pallas_clusters", "auto")
-    if mode == "auto":
-        return jax.default_backend() == "tpu"
-    return bool(mode)
-
-
-def _use_pallas_onehot(kg):
-    """Per-lane one-hot MXU walk backend select (ops/pallas_onehot.py,
-    round 4). "auto"/absent = TPU whenever the sync packed one-hot
-    tables (single-level scenes, C <= 512) — measured 8.5x the XLA
-    shortlist on incoherent wavefronts (tools/cluster_profile.py)."""
-    if "oh_cbounds" not in kg["dscene"]:
+def _use_cluster_walk_gpu(kg):
+    """The cluster walk kernel (ops/cluster_walk_gpu.py) on the GPU; the
+    XLA shortlist (ops/cluster_intersect.py) elsewhere, and as the twin
+    the kernel is tested against. kg["pallas_clusters"] = False keeps
+    the shortlist on the GPU too (A/B runs); kg["pallas_interpret"]
+    runs the kernel in interpret mode (CPU tests)."""
+    if kg.get("pallas_interpret", False):
+        return True
+    if not kg.get("pallas_clusters", True):
         return False
-    mode = kg.get("pallas_onehot", "auto")
-    if mode == "auto":
-        return jax.default_backend() == "tpu"
-    return bool(mode)
-
-
-def _use_pallas_clusters2(kg):
-    """Two-level walk backend select (big scenes pack sc_bounds).
-    "auto"/absent = TPU (or interpret-forced tests); off TPU the packed
-    BVH walk is the fallback twin."""
-    mode = kg.get("pallas_clusters2", "auto")
-    if mode == "auto":
-        return jax.default_backend() == "tpu" \
-            or bool(kg.get("pallas_interpret", False))
-    return bool(mode)
-
-
-def _use_pallas_onehot2(kg):
-    """Two-level one-hot backend select (ops/pallas_onehot.py
-    intersect_clusters2_onehot). OPT-IN ONLY: measured 63x SLOWER
-    in-context on big_instanced (0.007 vs 0.44 Msps, round 5) —
-    incoherent regen tiles union over most superclusters and every
-    outer visit streams the whole ~660 KB group table from HBM
-    (~11 GB/sweep). Kept as a backend for coherent workloads; the
-    tile-shared clusters2 walk is the default."""
-    return bool(kg.get("pallas_onehot2", False))
-
-
-def _use_pallas_occlusion(kg):
-    """Dual-reduction volume-NEE sweep backend select. "auto" follows
-    the main cluster dispatch (Pallas walk on TPU, never on use_brute
-    scenes); True forces the Pallas walk wherever cluster tables exist
-    (the volume_sss A/B — ROADMAP 1c/1d); False forces dense."""
-    ds = kg["dscene"]
-    if "cluster_bounds" not in ds or "cluster_boundary" not in ds \
-            or int(kg.get("cluster_tris", 0)) <= 0:
-        return False
-    if "sc_bounds" in ds:
-        # two-level scenes: the single-level occlusion kernel would pin
-        # the whole (big) table in VMEM — dense stays the fallback
-        return False
-    mode = kg.get("pallas_occlusion", "auto")
-    if mode == "auto":
-        return (not kg["use_brute"]) and (
-            _use_pallas_clusters(kg) or _use_pallas_onehot(kg))
-    return bool(mode)
+    return jax.default_backend() == "gpu"
 
 
 def _scene_intersect_tris(kg, o, d, tmin, tmax, visibility, shadow=False,
@@ -180,65 +128,18 @@ def _scene_intersect_tris(kg, o, d, tmin, tmax, visibility, shadow=False,
                                 ds["tri_verts_world_t1"])
             if deform else None,
             time=time if deform else None)
-    if "sc_bounds" in ds and int(kg.get("cluster_tris", 0)) > 0 \
-            and _use_pallas_clusters2(kg):
-        if "oh2_scb" in ds and _use_pallas_onehot2(kg):
-            # two-level one-hot walk (ops/pallas_onehot.py round 5):
-            # tile-shared supercluster pick + per-lane one-hot inner
-            # over the DMA'd group tables
-            from raytracingproject_tpu.ops import pallas_onehot as po
-            return po.intersect_clusters2_onehot(
-                ds["oh2_scb"], ds["oh2_gcb"], ds["oh2_hi"],
-                ds["oh2_mid"], ds["oh2_lo"],
-                int(kg.get("oh2_cluster_tris", 0)
-                    or kg["cluster_tris"]), o, d, tmin, tmax,
-                visibility, shadow_any_hit=shadow,
-                has_instances=bool(kg.get("has_instances", False)),
-                time=time,
-                has_motion=bool(kg.get("cluster_motion", False)),
-                interpret=bool(kg.get("pallas_interpret", False)))
-        # big-scene two-level tile-shared walk (ops/pallas_cluster.py):
-        # rows stream from HBM, VMEM holds only the entry tables; off
-        # TPU the packed BVH below stays the twin (the XLA shortlist's
-        # (C, chunk) entry table would not scale to this C)
-        from raytracingproject_tpu.ops import pallas_cluster as pcl
-        return pcl.intersect_clusters2_pallas(
-            ds["sc_bounds"], ds["cluster_bounds"], ds["cluster_table"],
-            int(kg["cluster_tris"]), int(kg["sc_gmax"]), o, d, tmin,
-            tmax, visibility, shadow_any_hit=shadow,
-            has_instances=bool(kg.get("has_instances", False)),
-            time=time,
-            has_motion=bool(kg.get("cluster_motion", False)),
-            interpret=bool(kg.get("pallas_interpret", False)))
-    if "cluster_bounds" in ds and "sc_bounds" not in ds \
-            and int(kg.get("cluster_tris", 0)) > 0:
-        if _use_pallas_onehot(kg):
-            # per-lane one-hot MXU walk (ops/pallas_onehot.py): VMEM
-            # entry table + exact bf16x3 row fetch on the MXU
-            from raytracingproject_tpu.ops import pallas_onehot as po
-            return po.intersect_clusters_onehot(
-                ds["oh_cbounds"], ds["oh_table_hi"], ds["oh_table_mid"],
-                ds["oh_table_lo"],
-                int(kg.get("oh_cluster_tris", 0)
-                    or kg["cluster_tris"]), o, d, tmin,
-                tmax, visibility, shadow_any_hit=shadow,
-                has_instances=bool(kg.get("has_instances", False)),
-                time=time,
-                has_motion=bool(kg.get("cluster_motion", False)),
-                interpret=bool(kg.get("pallas_interpret", False)))
-        if _use_pallas_clusters(kg):
-            # tile-shared VMEM-resident walk (ops/pallas_cluster.py):
-            # one dispatch for the whole wavefront, per-tile convergence
-            from raytracingproject_tpu.ops import pallas_cluster as pcl
-            return pcl.intersect_clusters_pallas(
+    if "cluster_bounds" in ds and int(kg.get("cluster_tris", 0)) > 0:
+        if _use_cluster_walk_gpu(kg):
+            from raytracingproject_tpu.ops import cluster_walk_gpu as cwg
+            return cwg.intersect_clusters_gpu(
                 ds["cluster_bounds"], ds["cluster_table"],
-                int(kg["cluster_tris"]), o, d, tmin, tmax, visibility,
-                shadow_any_hit=shadow,
+                int(kg["cluster_tris"]), o, d, tmin, tmax,
+                visibility=visibility, shadow_any_hit=shadow,
                 has_instances=bool(kg.get("has_instances", False)),
-                time=time,
-                has_motion=bool(kg.get("cluster_motion", False)))
-        # gather-free cluster-shortlist traversal (the XLA fast path;
-        # ops/cluster_intersect.py)
+                time=time, has_motion=bool(kg.get("cluster_motion", False)),
+                interpret=bool(kg.get("pallas_interpret", False)))
+        # cluster-shortlist traversal in plain XLA
+        # (ops/cluster_intersect.py)
         from raytracingproject_tpu.ops import cluster_intersect as ci
         return ci.intersect_clusters(
             ds["cluster_bounds"], ds["cluster_table"],
@@ -270,61 +171,6 @@ def _scene_intersect_tris(kg, o, d, tmin, tmax, visibility, shadow=False,
         stack_depth=int(kg.get("bvh_stack_depth", 0)))
 
 
-def _use_fused_nee(kg):
-    """Fused-NEE eligibility: one union one-hot walk per bounce
-    answering this bounce's NEE shadow ANY-hit and the next ray's
-    CLOSEST-hit together (ops/pallas_onehot.py
-    intersect_clusters_onehot_dual; round-5 verdict item 2 — the
-    reference pays two traversals per bounce, kernel/kernel_shadow.h +
-    kernel_path_surface.h). Opt-in via kg["fused_nee"] (the bench
-    autotunes it; tests force it with pallas_interpret), restricted to
-    the plain-surface configuration the dual kernel models: single
-    time per lane, no volume/SSS (they have their own dual sweep), no
-    transparent shadows, no catcher/light-pass consumers of the
-    synchronous blocked mask, single-level one-hot tables, no curves."""
-    ds = kg["dscene"]
-    if not kg.get("fused_nee", False):
-        return False
-    feats = kg.get("features") or {}
-    if feats.get("has_volume") or feats.get("has_subsurface"):
-        return False
-    if kg.get("light_passes") or kg.get("has_shadow_catcher"):
-        return False
-    if any(kg.get("shader_shadow_transparent", ())):
-        return False
-    if "oh_cbounds" not in ds or "sc_bounds" in ds \
-            or kg.get("use_brute"):
-        return False
-    if "curve_p0" in ds:
-        return False
-    if kg.get("cluster_motion") or kg.get("has_motion"):
-        return False
-    if int(ds["light_dist_type"].shape[0]) == 0:
-        return False
-    return _use_pallas_onehot(kg) or bool(kg.get("pallas_interpret"))
-
-
-def _dual_walk_onehot(kg, o_c, d_c, tmax_c, vis_c, o_a, d_a, tmax_a,
-                      vis_a, time=None, tmin_c=None):
-    """One union walk: closest hit for (o_c, d_c) + any-hit blocked for
-    (o_a, d_a). Empty windows (tmax < tmin) disable a ray per lane."""
-    from raytracingproject_tpu.ops import pallas_onehot as po
-    ds = kg["dscene"]
-    n = o_c.shape[0]
-    tmin = jnp.full((n,), 1e-5, prec.FT)
-    if tmin_c is None:
-        tmin_c = tmin
-    return po.intersect_clusters_onehot_dual(
-        ds["oh_cbounds"], ds["oh_table_hi"], ds["oh_table_mid"],
-        ds["oh_table_lo"],
-        int(kg.get("oh_cluster_tris", 0) or kg["cluster_tris"]),
-        o_c, d_c, tmin_c, tmax_c, vis_c,
-        o_a, d_a, tmin, tmax_a, vis_a,
-        has_instances=bool(kg.get("has_instances", False)),
-        time=time, has_motion=False,
-        interpret=bool(kg.get("pallas_interpret", False)))
-
-
 def _shadow_blocked(kg, o, d, tmin, tmax, time=None):
     vis = jnp.full(o.shape[:1], ob.PATH_RAY_SHADOW, jnp.uint32)
     ds = kg["dscene"]
@@ -338,27 +184,6 @@ def _shadow_blocked(kg, o, d, tmin, tmax, time=None):
                                 ds["tri_verts_world_t1"])
             if deform else None,
             time=time if deform else None)
-        if "curve_p0" in ds:
-            blocked = blocked | _curve_any_hit(kg, o, d, tmin, tmax, vis)
-        return blocked
-    if _use_pallas_occlusion(kg):
-        # pure any-hit via the VMEM-resident dual-reduction walk with
-        # the closest accumulator disabled (empty [tmin, tmin] window):
-        # no winner tracking, no per-chunk while-state HBM round trips
-        # (the XLA walk's dominant cost — docs/PERF.md), lanes early-exit
-        # on first accepted hit. Same vis_any semantics as the volume
-        # dual sweep (parity: tests/test_volume_dual_occlusion.py).
-        from raytracingproject_tpu.ops import pallas_cluster as pcl
-        _tb, _to, blocked = pcl.occlusion_clusters_pallas(
-            ds["cluster_bounds"], ds["cluster_table"],
-            ds["cluster_boundary"], int(kg["cluster_tris"]), o, d, tmin,
-            tmax_closest=tmin, tmax_any=tmax,
-            vis_closest=int(ob.PATH_RAY_CAMERA),
-            vis_any=int(ob.PATH_RAY_SHADOW),
-            has_instances=bool(kg.get("has_instances", False)),
-            time=time if kg.get("cluster_motion") else None,
-            has_motion=bool(kg.get("cluster_motion", False)),
-            interpret=bool(kg.get("pallas_interpret", False)))
         if "curve_p0" in ds:
             blocked = blocked | _curve_any_hit(kg, o, d, tmin, tmax, vis)
         return blocked
@@ -492,22 +317,17 @@ def make_path_kernel(kg, px, py, pixel_index):
         and "equiangular" not in ablate
     # volume NEE: the shadow any-hit and the medium boundary
     # closest-hit interrogate the SAME segment — one dual-reduction
-    # sweep answers both, halving the per-bounce NEE triangle work
-    # (measured 21% of volume_sss in tools/stage_profile.py). Dense
-    # scenes use intersect_brute_occlusion; cluster scenes the
-    # VMEM-resident Pallas dual walk (round 4 — previously the cluster
-    # path fell back to the stepped loop and paid two sweeps).
-    # Transparent shadows need the stepped loop, so they keep it.
+    # sweep (intersect_brute_occlusion) answers both on dense scenes.
+    # Cluster and BVH scenes, and transparent shadows, take the
+    # stepped loop.
     use_dual_shadow = has_volume \
         and not any(kg.get("shader_shadow_transparent", ())) \
-        and (bool(kg["use_brute"]) or _use_pallas_occlusion(kg))
+        and bool(kg["use_brute"])
 
     aux_names = tuple(kg.get("aux_passes", ()))
     aov_names = tuple(n[4:] for n in aux_names if n.startswith("aov:"))
     light_passes = bool(kg.get("light_passes", False))
     LP_CATS = ("diffuse", "glossy", "transmission", "volume")
-    fused = _use_fused_nee(kg)
-    HIT_KEYS = ("t", "prim", "u", "v", "object")
 
     def _vis_of_flag(flag):
         return jnp.where(
@@ -650,14 +470,9 @@ def make_path_kernel(kg, px, py, pixel_index):
             # lu >= 1/n, so portals could never trigger for it).
             lu = jnp.where(first, (k_place + lu) / n_strat, lu)
 
-        if fused:
-            # carried hit: computed by the PREVIOUS iteration's union
-            # walk (or the chunk-start seed walk) for this ray
-            hit = {k: st["hit_" + k] for k in HIT_KEYS}
-        else:
-            vis_ray = _vis_of_flag(st["path_flag"])
-            hit = _scene_intersect(kg, st["o"], st["d"], st["tmin"],
-                                   st["tmax"], vis_ray, time=st["time"])
+        vis_ray = _vis_of_flag(st["path_flag"])
+        hit = _scene_intersect(kg, st["o"], st["d"], st["tmin"],
+                               st["tmax"], vis_ray, time=st["time"])
         found = hit["prim"] >= 0
 
         L = st["L"]
@@ -1205,55 +1020,28 @@ def make_path_kernel(kg, px, py, pixel_index):
                 """One dense pass -> ((t_boundary, t_other), blocked):
                 the winner-free occlusion sweep (see
                 intersect_brute_occlusion for why this beats a
-                closest-hit + any-hit pair ~2.4x). On the cluster path
-                the same dual reduction runs as a VMEM-resident Pallas
-                walk that only fetches clusters able to tighten one of
-                the three accumulators (pallas_cluster.
-                occlusion_clusters_pallas; ROADMAP 1d)."""
+                closest-hit + any-hit pair)."""
                 dsd = kg["dscene"]
                 deform = kg.get("has_deform_motion")
-                if _use_pallas_occlusion(kg):
-                    from raytracingproject_tpu.ops import (
-                        pallas_cluster as pcl)
-                    t_b, t_o, blk = pcl.occlusion_clusters_pallas(
-                        dsd["cluster_bounds"], dsd["cluster_table"],
-                        dsd["cluster_boundary"],
-                        int(kg["cluster_tris"]), o_s, d_s,
-                        jnp.full((n,), 1e-5, prec.FT),
-                        tmax_closest=jnp.where(
-                            on_closest,
-                            jnp.minimum(tmax_s, um.RAY_TMAX), 1e-5),
-                        tmax_any=jnp.where(on_any, tmax_s, 1e-5),
-                        vis_closest=int(ob.PATH_RAY_CAMERA),
-                        vis_any=int(ob.PATH_RAY_SHADOW),
-                        has_instances=bool(
-                            kg.get("has_instances", False)),
-                        time=st["time"] if kg.get("cluster_motion")
-                        else None,
-                        has_motion=bool(kg.get("cluster_motion",
-                                                False)),
-                        interpret=bool(kg.get("pallas_interpret",
-                                              False)))
-                else:
-                    t_b, t_o, blk = isect.intersect_brute_occlusion(
-                        dsd["tri_verts_world"],
-                        dsd["prim_object_packed"],
-                        dsd["prim_is_boundary"],
-                        o_s, d_s, jnp.full((n,), 1e-5, prec.FT),
-                        tmax_closest=jnp.where(
-                            on_closest,
-                            jnp.minimum(tmax_s, um.RAY_TMAX), 1e-5),
-                        tmax_any=jnp.where(on_any, tmax_s, 1e-5),
-                        visibility_closest=jnp.full(
-                            (n,), ob.PATH_RAY_CAMERA, jnp.uint32),
-                        visibility_any=jnp.full(
-                            (n,), ob.PATH_RAY_SHADOW, jnp.uint32),
-                        object_visibility=dsd["object_visibility"],
-                        tri_verts_t1=(dsd.get(
-                            "tri_verts_world_steps",
-                            dsd["tri_verts_world_t1"])
-                                      if deform else None),
-                        time=st["time"] if deform else None)
+                t_b, t_o, blk = isect.intersect_brute_occlusion(
+                    dsd["tri_verts_world"],
+                    dsd["prim_object_packed"],
+                    dsd["prim_is_boundary"],
+                    o_s, d_s, jnp.full((n,), 1e-5, prec.FT),
+                    tmax_closest=jnp.where(
+                        on_closest,
+                        jnp.minimum(tmax_s, um.RAY_TMAX), 1e-5),
+                    tmax_any=jnp.where(on_any, tmax_s, 1e-5),
+                    visibility_closest=jnp.full(
+                        (n,), ob.PATH_RAY_CAMERA, jnp.uint32),
+                    visibility_any=jnp.full(
+                        (n,), ob.PATH_RAY_SHADOW, jnp.uint32),
+                    object_visibility=dsd["object_visibility"],
+                    tri_verts_t1=(dsd.get(
+                        "tri_verts_world_steps",
+                        dsd["tri_verts_world_t1"])
+                                  if deform else None),
+                    time=st["time"] if deform else None)
                 if "curve_p0" in dsd:
                     # hair is never a volume boundary: its closest hit
                     # feeds t_other and the shadow any-hit
@@ -1278,13 +1066,7 @@ def make_path_kernel(kg, px, py, pixel_index):
 
             sh_trans = jnp.ones((n, 3), prec.FT)
             bhit_sh = None
-            if fused:
-                # defer the shadow any-hit to the end-of-body union
-                # walk (it shares the next ray's cluster fetches); the
-                # contribution is applied there, in the same position
-                # of the per-sample accumulation order
-                blocked = None
-            elif "shadow" in ablate:
+            if "shadow" in ablate:
                 blocked = jnp.zeros((n,), bool)
             elif use_dual_shadow:
                 bhit_sh, blocked = _dual_sweep(
@@ -1500,9 +1282,7 @@ def make_path_kernel(kg, px, py, pixel_index):
                                       shadowed.astype(prec.FT), alpha)
                 alive = alive & ~is_catch
                 can_light = can_light & ~is_catch
-            if not fused:
-                L = jnp.where((can_light & ~blocked)[:, None],
-                              L + contrib, L)
+            L = jnp.where((can_light & ~blocked)[:, None], L + contrib, L)
             if light_passes:
                 lit = can_light & ~blocked
                 scale = sh_trans * l_eval \
@@ -1746,107 +1526,21 @@ def make_path_kernel(kg, px, py, pixel_index):
                 out[k] = st[k]
         if "lobe_strat" in st:
             out["lobe_strat"] = st["lobe_strat"]
-        if fused:
-            if has_lights:
-                pend = {"sh_o": sh_o, "sh_d": sh_d,
-                        "sh_tmax": jnp.where(
-                            can_light & ("shadow" not in ablate),
-                            sh_tmax, -1.0),
-                        "can_light": can_light, "contrib": contrib,
-                        "unblocked": "shadow" in ablate}
-            else:
-                pend = None
-            return out, pend
         return out
 
-    if not fused:
-        return start_paths, bounce_body
-
-    # ---- fused-NEE mode (round-5 verdict item 2): the step returns
-    # (out, pend); `finish` runs ONE union walk per bounce answering
-    # the deferred NEE shadow AND the next ray's closest hit, applies
-    # the NEE contribution (same position in the per-sample float
-    # accumulation order as the unfused drivers), and stores the
-    # carried hit. `seed` runs the chunk-start camera walk. ----
-    def seed(st):
-        vis0 = _vis_of_flag(st["path_flag"])
-        empty = jnp.full((n,), -1.0, prec.FT)
-        bhit, _blk = _dual_walk_onehot(
-            kg, st["o"], st["d"],
-            jnp.where(st["alive"], st["tmax"], empty), vis0,
-            st["o"], st["d"], empty, vis0, time=st["time"],
-            tmin_c=st["tmin"])
-        st = dict(st)
-        for k in HIT_KEYS:
-            st["hit_" + k] = bhit[k]
-        return st
-
-    def finish(out, pend, regen_mask=None, regen_st=None):
-        """Union walk + deferred NEE resolve. regen_mask/regen_st: the
-        regen driver swaps completed lanes' NEXT ray for their NEW
-        sample's camera ray so it shares this walk; the NEE contrib
-        still lands in the OLD sample's L (returned separately)."""
-        o_c, d_c = out["o"], out["d"]
-        vis_c = _vis_of_flag(out["path_flag"])
-        alive_c = out["alive"]
-        time_c = out["time"]
-        if regen_mask is not None:
-            o_c = jnp.where(regen_mask[:, None], regen_st["o"], o_c)
-            d_c = jnp.where(regen_mask[:, None], regen_st["d"], d_c)
-            vis_c = jnp.where(regen_mask, _vis_of_flag(
-                regen_st["path_flag"]), vis_c)
-            alive_c = alive_c | regen_mask
-            time_c = jnp.where(regen_mask, regen_st["time"], time_c)
-        empty = jnp.full((n,), -1.0, prec.FT)
-        tmax_c = jnp.where(alive_c, jnp.minimum(
-            out["tmax"], prec.FT(um.RAY_TMAX)), empty)
-        if pend is not None:
-            sh_o, sh_d = pend["sh_o"], pend["sh_d"]
-            sh_tmax = pend["sh_tmax"]
-        else:
-            sh_o, sh_d, sh_tmax = o_c, d_c, empty
-        vis_a = jnp.full((n,), ob.PATH_RAY_SHADOW, jnp.uint32)
-        bhit, blocked = _dual_walk_onehot(
-            kg, o_c, d_c, tmax_c, vis_c, sh_o, sh_d, sh_tmax, vis_a,
-            time=time_c)
-        L = out["L"]
-        if pend is not None:
-            if pend["unblocked"]:
-                blocked = jnp.zeros((n,), bool)
-            L = jnp.where((pend["can_light"] & ~blocked)[:, None],
-                          L + pend["contrib"], L)
-        out = dict(out)
-        out["L"] = L
-        for k in HIT_KEYS:
-            out["hit_" + k] = bhit[k]
-        return out
-
-    return start_paths, bounce_body, seed, finish
+    return start_paths, bounce_body
 
 
 def path_trace_sample(kg, px, py, pixel_index, sample):
     """Trace one sample for a wavefront of pixels (fixed-depth grid).
 
     Returns (radiance (N,3), alpha (N,), aux dict)."""
-    kern = make_path_kernel(kg, px, py, pixel_index)
+    start_paths, step = make_path_kernel(kg, px, py, pixel_index)
     n = px.shape[0]
     max_bounce = int(kg["kint"]["max_bounce"])
-    if len(kern) == 4:
-        # fused-NEE: seed the camera hit, then one union walk per
-        # bounce (same per-sample accumulation order as unfused)
-        start_paths, step, seed, finish = kern
-        state = seed(start_paths(
-            jnp.broadcast_to(jnp.uint32(sample), (n,))))
-
-        def body(i, st):
-            out, pend = step(i, st)
-            return finish(out, pend)
-        final = jax.lax.fori_loop(0, max_bounce + 1, body, state)
-    else:
-        start_paths, step = kern
-        state = start_paths(jnp.broadcast_to(jnp.uint32(sample), (n,)))
-        final = jax.lax.fori_loop(0, max_bounce + 1,
-                                  lambda i, st: step(i, st), state)
+    state = start_paths(jnp.broadcast_to(jnp.uint32(sample), (n,)))
+    final = jax.lax.fori_loop(0, max_bounce + 1,
+                              lambda i, st: step(i, st), state)
     aux = {k[4:]: v for k, v in final.items() if k.startswith("aux_")}
     return final["L"], final["alpha"], aux
 
@@ -1894,10 +1588,10 @@ def render_samples_regen(kg, px, py, pixel_index, sample_start, num_samples,
 
     lanes_per_pixel=K > 1 runs K samples of each pixel CONCURRENTLY
     (lane k covers samples {start+k, start+k+K, ...}): callers pass
-    px/py/pixel_index tiled K times. On TPU the per-iteration cost is
-    dominated by fixed-latency table fetches (docs/PERF.md), so a wider
-    wavefront renders nearly K x the samples in the same wall time for
-    small pixel counts — the split-kernel "more work per launch" lever
+    px/py/pixel_index tiled K times. Where the per-iteration cost is
+    dominated by fixed latencies, a wider wavefront renders nearly K x
+    the samples in the same wall time for small pixel counts — the
+    split-kernel "more work per launch" lever
     (ref: device_split_kernel.cpp:210-232) applied to sample space.
     Accumulation per sample is unchanged; only the final K-way pixel
     reduction reorders float adds.
@@ -1906,11 +1600,7 @@ def render_samples_regen(kg, px, py, pixel_index, sample_start, num_samples,
     K = int(lanes_per_pixel)
     assert num_samples % K == 0, "lanes_per_pixel must divide num_samples"
     per_lane = num_samples // K
-    kern = make_path_kernel(kg, px, py, pixel_index)
-    if len(kern) == 4:
-        return _render_samples_regen_fused(
-            kg, kern, px, py, sample_start, num_samples, K)
-    start_paths, step = kern
+    start_paths, step = make_path_kernel(kg, px, py, pixel_index)
     n = px.shape[0]
     assert n % K == 0
     npix = n // K
@@ -1932,11 +1622,6 @@ def render_samples_regen(kg, px, py, pixel_index, sample_start, num_samples,
         "fresh": jnp.ones((n,), bool),        # lane holds unmerged sample
     }
     carry0.update({"acc_" + k: jnp.zeros_like(st0[k]) for k in aux_keys})
-    count_iters = bool(kg.get("count_iters", False))
-    if count_iters:
-        # profiling diagnostic (tools/trav_context_bench.py): the loop
-        # trip count divides wall time into per-bounce-iteration cost
-        carry0["n_iters"] = jnp.int32(0)
 
     def cond(c):
         return jnp.any(c["st"]["alive"] | (c["fresh"])
@@ -1963,8 +1648,6 @@ def render_samples_regen(kg, px, py, pixel_index, sample_start, num_samples,
         st = step(0, st)
         out = {"st": st, "L_acc": L_acc, "A_acc": A_acc, "done": done,
                "fresh": fresh}
-        if count_iters:
-            out["n_iters"] = c["n_iters"] + 1
         out.update(aux_acc)
         return out
 
@@ -1979,11 +1662,7 @@ def render_samples_regen(kg, px, py, pixel_index, sample_start, num_samples,
     L, A = _pix(out["L_acc"]), _pix(out["A_acc"])
     if want_aux:
         aux = {k[4:]: _pix(out["acc_" + k]) for k in aux_keys}
-        if count_iters:
-            return L, A, aux, out["n_iters"]
         return L, A, aux
-    if count_iters:
-        return L, A, out["n_iters"]
     return L, A
 
 
@@ -1992,96 +1671,6 @@ def _sel(mask, a, b):
     while m.ndim < a.ndim:
         m = m[..., None]
     return jnp.where(m, a, b)
-
-
-def _render_samples_regen_fused(kg, kern, px, py, sample_start,
-                                num_samples, K):
-    """Path-regeneration driver for the fused-NEE kernel (one union
-    walk per bounce, ops/pallas_onehot.py intersect_clusters_onehot_dual).
-
-    Restructured vs the unfused driver: merge/regen happens AFTER the
-    shading half of the bounce, so a dying lane's deferred NEE shadow
-    and its replacement sample's camera ray ride the SAME union walk —
-    no idle iterations, no separate camera sweep. Sample accumulation
-    order matches the unfused drivers (each bounce's NEE contribution
-    is the last L-add of its bounce), so fixed-grid/regen parity holds
-    within fused mode bit-exactly.
-    """
-    per_lane = num_samples // K
-    start_paths, step, seed, finish = kern
-    n = px.shape[0]
-    assert n % K == 0
-    npix = n // K
-    HIT_KEYS = ("t", "prim", "u", "v", "object")
-
-    if K == 1:
-        s0 = jnp.broadcast_to(jnp.uint32(sample_start), (n,))
-    else:
-        s0 = jnp.uint32(sample_start) + jnp.repeat(
-            jnp.arange(K, dtype=jnp.uint32), npix)
-    st0 = seed(start_paths(s0))
-    aux_keys = [k for k in st0 if k.startswith("aux_")]
-    carry0 = {
-        "st": st0,
-        "L_acc": jnp.zeros((n, 3), prec.FT),
-        "A_acc": jnp.zeros((n,), prec.FT),
-        "done": jnp.zeros((n,), jnp.int32),
-        "fresh": jnp.ones((n,), bool),
-    }
-    carry0.update({"acc_" + k: jnp.zeros_like(st0[k]) for k in aux_keys})
-    count_iters = bool(kg.get("count_iters", False))
-    if count_iters:
-        carry0["n_iters"] = jnp.int32(0)
-
-    def cond(c):
-        return jnp.any(c["st"]["alive"] | c["fresh"]
-                       | (c["done"] < per_lane))
-
-    def body(c):
-        out, pend = step(0, c["st"])
-        dead = ~out["alive"]
-        newly = dead & c["fresh"]          # sample completes this body
-        regen = newly & (c["done"] + 1 < per_lane)
-        next_sample = out["sample"] + jnp.uint32(K)
-        new_st = start_paths(jnp.where(regen, next_sample,
-                                       out["sample"]))
-        fin = finish(out, pend, regen_mask=regen, regen_st=new_st)
-
-        L_acc = c["L_acc"] + jnp.where(newly[:, None], fin["L"], 0.0)
-        A_acc = c["A_acc"] + jnp.where(newly, fin["alpha"], 0.0)
-        aux_acc = {"acc_" + k: c["acc_" + k]
-                   + _sel(newly, fin[k], jnp.zeros_like(fin[k]))
-                   for k in aux_keys}
-        done = c["done"] + newly.astype(jnp.int32)
-        fresh = (c["fresh"] & ~newly) | regen
-
-        st = {k: _sel(regen, new_st[k], fin[k]) for k in new_st}
-        for k in HIT_KEYS:
-            st["hit_" + k] = fin["hit_" + k]
-        outc = {"st": st, "L_acc": L_acc, "A_acc": A_acc, "done": done,
-                "fresh": fresh}
-        if count_iters:
-            outc["n_iters"] = c["n_iters"] + 1
-        outc.update(aux_acc)
-        return outc
-
-    out = jax.lax.while_loop(cond, body, carry0)
-
-    def _pix(v):
-        if K == 1:
-            return v
-        return jnp.sum(v.reshape((K, npix) + v.shape[1:]), axis=0)
-
-    want_aux = bool(kg.get("aux_passes")) or bool(kg.get("light_passes"))
-    L, A = _pix(out["L_acc"]), _pix(out["A_acc"])
-    if want_aux:
-        aux = {k[4:]: _pix(out["acc_" + k]) for k in aux_keys}
-        if count_iters:
-            return L, A, aux, out["n_iters"]
-        return L, A, aux
-    if count_iters:
-        return L, A, out["n_iters"]
-    return L, A
 
 
 def render_samples_adaptive_chunk(kg, px, py, pixel_index, sample_start,
@@ -2106,9 +1695,6 @@ def render_samples_adaptive_chunk(kg, px, py, pixel_index, sample_start,
     """
     assert not kg.get("aux_passes"), \
         "aux passes require the fixed-grid renderer"
-    if _use_fused_nee(kg):
-        return _render_adaptive_chunk_fused(kg, px, py, pixel_index,
-                                            sample_start, num_samples)
     start_paths, step = make_path_kernel(kg, px, py, pixel_index)
     n = px.shape[0]
     s0 = jnp.asarray(sample_start, jnp.uint32)
@@ -2151,54 +1737,6 @@ def render_samples_adaptive_chunk(kg, px, py, pixel_index, sample_start,
     return out["L_acc"], out["A_acc"], out["E_acc"]
 
 
-def _render_adaptive_chunk_fused(kg, px, py, pixel_index, sample_start,
-                                 num_samples):
-    """render_samples_adaptive_chunk on the fused-NEE kernel — same
-    post-walk merge/regen restructuring as _render_samples_regen_fused
-    plus the even-sample half-buffer accumulator."""
-    start_paths, step, seed, finish = make_path_kernel(kg, px, py,
-                                                       pixel_index)
-    n = px.shape[0]
-    HIT_KEYS = ("t", "prim", "u", "v", "object")
-    s0 = jnp.asarray(sample_start, jnp.uint32)
-    st0 = seed(start_paths(s0))
-    carry0 = {
-        "st": st0,
-        "L_acc": jnp.zeros((n, 3), prec.FT),
-        "A_acc": jnp.zeros((n,), prec.FT),
-        "E_acc": jnp.zeros((n, 3), prec.FT),
-        "done": jnp.zeros((n,), jnp.int32),
-        "fresh": jnp.ones((n,), bool),
-    }
-
-    def cond(c):
-        return jnp.any(c["st"]["alive"] | c["fresh"]
-                       | (c["done"] < num_samples))
-
-    def body(c):
-        out, pend = step(0, c["st"])
-        dead = ~out["alive"]
-        newly = dead & c["fresh"]
-        regen = newly & (c["done"] + 1 < num_samples)
-        new_st = start_paths(jnp.where(regen, out["sample"] + 1,
-                                       out["sample"]))
-        fin = finish(out, pend, regen_mask=regen, regen_st=new_st)
-        L_acc = c["L_acc"] + jnp.where(newly[:, None], fin["L"], 0.0)
-        A_acc = c["A_acc"] + jnp.where(newly, fin["alpha"], 0.0)
-        even = newly & (fin["sample"] % 2 == 0)
-        E_acc = c["E_acc"] + jnp.where(even[:, None], fin["L"], 0.0)
-        done = c["done"] + newly.astype(jnp.int32)
-        fresh = (c["fresh"] & ~newly) | regen
-        st = {k: _sel(regen, new_st[k], fin[k]) for k in new_st}
-        for k in HIT_KEYS:
-            st["hit_" + k] = fin["hit_" + k]
-        return {"st": st, "L_acc": L_acc, "A_acc": A_acc,
-                "E_acc": E_acc, "done": done, "fresh": fresh}
-
-    out = jax.lax.while_loop(cond, body, carry0)
-    return out["L_acc"], out["A_acc"], out["E_acc"]
-
-
 def render_samples_branched(kg, px, py, pixel_index, aa_start, num_aa,
                             branch, lobe_split=True):
     """Branched-path mode (ref: kernel_path_branched.h): each AA sample
@@ -2213,8 +1751,6 @@ def render_samples_branched(kg, px, py, pixel_index, aa_start, num_aa,
 
     Returns (L_sum, A_sum) over num_aa x branch total samples.
     """
-    if _use_fused_nee(kg):   # branched splitting stays on the
-        kg = {**kg, "fused_nee": False}    # two-walk kernel
     start_paths, step = make_path_kernel(kg, px, py, pixel_index)
     n = px.shape[0]
     max_bounce = int(kg["kint"]["max_bounce"])

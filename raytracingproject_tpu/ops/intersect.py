@@ -1,13 +1,13 @@
 """Device intersection kernels (ref: kernel/bvh/bvh.h scene_intersect,
 kernel/bvh/bvh_traversal.h:34-229, kernel/geom/geom_triangle_intersect.h).
 
-TPU architecture: instead of one traversal stack per GPU thread, a whole
-ray wavefront advances in lockstep through a `lax.while_loop`; per-lane
-state (current node, stack, best hit) lives in SoA arrays, node fetches
-are batched row gathers from the flat BVH arrays (bvh/build.py layout).
-This is the standard while-while GPU traversal reshaped for XLA: no
-divergent control flow, every lane executes the same fused VPU ops under
-masks.
+Wavefront architecture: instead of one traversal stack per GPU thread,
+a whole ray wavefront advances in lockstep through a `lax.while_loop`;
+per-lane state (current node, stack, best hit) lives in SoA arrays, node
+fetches are batched row gathers from the flat BVH arrays (bvh/build.py
+layout). This is the standard while-while GPU traversal reshaped for
+XLA: no divergent control flow, every lane executes the same fused
+elementwise ops under masks.
 
 Two-level instancing (TLAS over object instances -> BLAS per geometry,
 ref: bvh/bvh.h pack_instances) is handled in-traversal: instance leaves
@@ -17,8 +17,8 @@ identical in both spaces and hit compares stay global.
 
 For small scenes (<= ~512 triangles, Cornell class) `intersect_brute`
 skips the BVH entirely: a `lax.scan` over triangle blocks is pure dense
-VPU math with zero gathers — much faster than pointer-style traversal on
-TPU for these sizes.
+elementwise math with zero gathers — faster than pointer-style
+traversal at these sizes.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ def watertight_setup(o, d):
     util/util_math_intersect.h:88 ray_triangle_intersect — the
     Woop/Benthin/Wald 2013 shear-basis formulation).
 
-    TPU redesign: instead of permuting triangle coordinates per lane
+    Redesign: instead of permuting triangle coordinates per lane
     (3-way selects per scalar), the permutation AND the shear are folded
     into three dense per-lane row vectors rx/ry/rz so every transformed
     coordinate is one 3-term dot — pure FMA chains in the tri-major
@@ -65,17 +65,20 @@ def watertight_setup(o, d):
 
 def watertight_setup_c(ox, oy, oz, dx, dy, dz):
     """watertight_setup on ray components — the SoA form shared with
-    kernels whose memory model can't afford (..., 3) minor-dim stacks
-    (ops/pallas_cluster.py). Identical math, bit-for-bit."""
+    kernels that work on per-lane component vectors
+    (ops/cluster_walk_gpu.py). Identical math, bit-for-bit."""
     ax, ay, az = jnp.abs(dx), jnp.abs(dy), jnp.abs(dz)
     zmax = (az >= ax) & (az >= ay)
     ymax = ~zmax & (ay >= ax)
     kz = jnp.where(zmax, 2, jnp.where(ymax, 1, 0))
     d_kz = jnp.where(zmax, dz, jnp.where(ymax, dy, dx))
-    # winding-preserving cyclic axes; swap when d[kz] < 0
+    # winding-preserving cyclic axes; swap when d[kz] < 0. Selects
+    # rather than `% 3`, which the GPU kernel route cannot lower.
     neg = d_kz < 0.0
-    kx = jnp.where(neg, (kz + 2) % 3, (kz + 1) % 3)
-    ky = jnp.where(neg, (kz + 1) % 3, (kz + 2) % 3)
+    k1 = jnp.where(kz == 2, 0, kz + 1)      # (kz + 1) % 3
+    k2 = jnp.where(kz == 0, 2, kz - 1)      # (kz + 2) % 3
+    kx = jnp.where(neg, k2, k1)
+    ky = jnp.where(neg, k1, k2)
 
     def onehot(k):
         return ((k == 0).astype(prec.FT), (k == 1).astype(prec.FT),
@@ -300,11 +303,11 @@ def intersect_brute(tri_verts, prim_object, o, d, tmin, tmax,
                     tri_verts_t1=None, time=None):
     """Dense all-rays x all-triangles intersection.
 
-    TPU layout: triangle-major (B, N) blocks — the RAY axis is the minor
-    (lane) dimension so every MT term is a full-width VPU op; the B=8
-    triangle axis rides the sublanes. Measured ~125x faster than
-    ray-major (N, B) blocking on v5e. Components are kept as separate
-    (N,) arrays inside the kernel (SoA) to avoid minor-dim-3 tensors.
+    Layout: triangle-major (B, N) blocks — the RAY axis is the minor
+    dimension so every MT term is a full-width elementwise op over the
+    lanes; the B=8 triangle axis is the major one. Components are kept
+    as separate (N,) arrays inside the kernel (SoA) to avoid minor-dim-3
+    tensors.
 
     tri_verts: (P, 3, 3) in prim order (world space — brute path
     requires pre-transformed geometry).
@@ -342,8 +345,8 @@ def intersect_brute(tri_verts, prim_object, o, d, tmin, tmax,
         if pvb is not None:
             hit &= (pv[:, None] & visibility[None]) > 0
         t = jnp.where(hit, t, RAY_TMAX)
-        # winner within block via select-reductions — argmin +
-        # take_along_axis costs ~15x more than min/max reduces on TPU
+        # winner within block via select-reductions instead of argmin
+        # + take_along_axis
         tk = jnp.min(t, axis=0)            # (N,)
         win = t == tk[None]                # ties resolved by max below
         kidx = jax.lax.broadcasted_iota(jnp.int32, t.shape, 0)
@@ -593,8 +596,8 @@ def intersect_brute_occlusion(tri_verts, prim_object, boundary_mask,
     """Volume-NEE occlusion sweep with NO winner selection.
 
     The closest-hit WINNER reduction (min + 3 masked-max chains) costs
-    ~2.4x the triangle math itself on TPU (measured,
-    tools/stage_profile.py STAGE_FIXED). Volume NEE never needs u/v/
+    more than the triangle math itself (tools/stage_profile.py measures
+    it). Volume NEE never needs u/v/
     prim from the boundary search — only "how far to the first medium
     boundary" vs "is anything solid in front of it". Those are TWO
     masked min-reductions over a host-precomputed per-prim boundary
@@ -657,9 +660,8 @@ def intersect_brute_occlusion(tri_verts, prim_object, boundary_mask,
 # ===========================================================================
 #
 # The baseline lockstep traversal costs ~10 dynamic row fetches per
-# iteration (bounds, children, 8 leaf triangles). On TPU a row fetch is
-# ~0.7 ms per 256k-lane wavefront REGARDLESS of width (docs/PERF.md), so
-# the packed layout collapses everything to TWO fetches per iteration:
+# iteration (bounds, children, 8 leaf triangles). The packed layout
+# collapses everything to TWO fetches per iteration:
 #
 #   nodes_packed (M, 20) f32 : bounds(12) + child0/child1 as EXACT small
 #                              floats + per-child instance flags + pad
@@ -668,8 +670,8 @@ def intersect_brute_occlusion(tri_verts, prim_object, boundary_mask,
 #                              w2o(12) + blas_root + object as floats
 #
 # All payloads are FINITE floats with magnitude < 2^24 so they survive
-# the one-hot MXU lookup (0 x Inf/NaN would poison the row sum —
-# docs/PERF.md). Packed child encoding: >= 0 inner node index; < 0 leaf
+# a one-hot lookup (ops/lookup.py; 0 x Inf/NaN would poison the row
+# sum). Packed child encoding: >= 0 inner node index; < 0 leaf
 # -(1 + leaf_row*16 + count); the instance flag is its own column.
 
 LEAF_BLOCK_TRIS = 8
@@ -953,7 +955,7 @@ def pack_traversal_tables(bvh_bounds, bvh_children, tri_verts,
 #
 # The reference intersects hair as curves in-kernel
 # (kernel/geom/geom_curve_intersect.h; default shape "ribbon" oriented
-# to the ray). The TPU redesign keeps hair OUT of the BVH entirely:
+# to the ray). The redesign keeps hair OUT of the BVH entirely:
 # linear curve segments live in their own dense SoA table and are swept
 # tri-major-style after the triangle traversal, then merged by min-t.
 # One segment test is ~25 fused VPU flops (line-line closest approach +

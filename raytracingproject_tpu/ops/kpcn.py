@@ -4,12 +4,12 @@ The reference ships learned denoisers as closed backends — the OptiX
 AI denoiser (device/device_optix.cpp:669 launch_denoise ->
 optixDenoiserInvoke) and OpenImageDenoise
 (device/device_cpu.cpp:952 denoise_openimagedenoise_buffer). The
-TPU-native analog is a small kernel-predicting CNN in JAX (Bako et al.
+analog here is a small kernel-predicting CNN in JAX (Bako et al.
 2017's KPCN idea at toy scale): a conv net over [color, albedo,
 normal] predicts a per-pixel softmax filter kernel applied to the
 noisy radiance. Predicting WEIGHTS (not colors) keeps the output a
 convex combination of observed radiance — no color shift, energy
-bounded by construction, and the convs map straight onto the MXU.
+bounded by construction, and the convs are plain XLA convolutions.
 
 Weights are trained offline on this renderer's own output
 (tools/kpcn_train.py: low-spp renders + aux features vs high-spp
@@ -51,9 +51,12 @@ def init_params(seed=0, width=WIDTH, k=K, cin=CIN):
 
 
 def _conv(x, w, b):
+    # HIGHEST: a default-precision float32 conv may run in TF32 on the
+    # GPU, which would move the filter weights off the trained ones
     y = jax.lax.conv_general_dilated(
         x[None], w, window_strides=(1, 1), padding="SAME",
-        dimension_numbers=("NHWC", "HWIO", "NHWC"))[0]
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        precision=jax.lax.Precision.HIGHEST)[0]
     return y + b
 
 

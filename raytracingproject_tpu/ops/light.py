@@ -89,7 +89,7 @@ def sample_light(dscene, P, u_sel, u1, u2, time=None, rows=None,
     """Sample one light point for NEE from shading points P (N, 3).
 
     Four wide-table lookups total (entries, prim_table, object_table,
-    lamp_table) — see ops/lookup.py for why this matters on TPU. The
+    lamp_table) — see ops/lookup.py. The
     light PICK (CDF inversion + all four row fetches) depends only on
     the random numbers, not on P — callers that re-evaluate the same
     sampled light from a second observer point (the equiangular volume

@@ -10,7 +10,7 @@ it; this is a deliberate capability extension for many-light scenes,
 where the flat CDF's pick quality collapses (pick pmf independent of
 receiver position).
 
-TPU-native shape, NOT a per-ray recursive descent:
+Wavefront shape, NOT a per-ray recursive descent:
 
 - The tree is a *balanced* implicit heap over Morton-ordered emitters,
   so every lane walks exactly `depth` levels in lockstep — no stacks,
@@ -196,7 +196,7 @@ def cluster_importance(P, cl):
     Conty-Kulla measure: energy * cos(theta') / max(d, r)^2, zero when
     the emission cone provably misses P. Position-only (no receiver
     normal) so sample-side and every pdf-side agree without threading
-    normals; angles are elementwise VPU math (~free, docs/PERF.md)."""
+    normals; angles are cheap elementwise math."""
     lo = cl[:, CL_LO:CL_LO + 3]
     hi = cl[:, CL_HI:CL_HI + 3]
     axis = cl[:, CL_AXIS:CL_AXIS + 3]

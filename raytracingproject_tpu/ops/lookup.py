@@ -1,10 +1,7 @@
-"""Batched table lookups tuned for TPU (replaces the reference's
-per-thread texture fetches, kernel/kernel_textures.h KERNEL_TEX).
+"""Batched table lookups (replaces the reference's per-thread texture
+fetches, kernel/kernel_textures.h KERNEL_TEX).
 
-Measured on v5e: one dynamic row gather over a wavefront costs ~0.7 ms
-at 256k lanes REGARDLESS of row width, while a one-hot matmul lookup on
-the MXU costs ~0.3 ms and amortizes over arbitrarily wide rows. The
-scene packer therefore concatenates all per-primitive (resp. per-object,
+The scene packer concatenates all per-primitive (resp. per-object,
 per-lamp) attributes into ONE wide float32 table and the kernels fetch
 each with a single `lookup_rows` call:
 
@@ -17,9 +14,13 @@ each with a single `lookup_rows` call:
                         sizeu sizev strength(3) angle spot_angle
                         spot_smooth pmf
 
-For small tables the one-hot path runs at HIGHEST precision so f32
-payloads (vertex positions!) survive the MXU bit-exactly; large tables
-fall back to a single row gather.
+Tiny tables take a select chain, small ones a one-hot contraction,
+large ones a row gather. The row limits were set on the earlier
+accelerator, where a gather was the expensive primitive; they are not
+measured on the H100. The one-hot contraction runs at
+Precision.HIGHEST: on the H100 a default-precision float32 product runs
+in TF32 and would round vertex positions; at HIGHEST a 0/1 one-hot
+reproduces each f32 row exactly.
 """
 
 from __future__ import annotations

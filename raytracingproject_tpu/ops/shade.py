@@ -4,7 +4,7 @@ shader_setup_from_ray, shader_eval_surface; kernel/geom/geom_triangle.h).
 `shader_setup` gathers per-primitive data (verts, per-corner normals/UVs,
 object transforms) for an entire hit wavefront and builds the ShaderData
 SoA view. `eval_shaders` dispatches the scene's traced shader functions
-over the wavefront with per-lane selection masks — the TPU stand-in for
+over the wavefront with per-lane selection masks — the stand-in for
 SVM bytecode dispatch; material sorting (ops/sort.py) can pre-group lanes
 by shader id so each masked eval is dense.
 """
@@ -96,8 +96,7 @@ def shader_setup(dscene, hit, ray_o, ray_d, time=None, ray_depth=None,
     must stay masked by the caller).
 
     All per-prim / per-object attributes come from TWO wide-table
-    lookups (ops/lookup.py) instead of ~12 row gathers — the dominant
-    cost of shading setup on TPU."""
+    lookups (ops/lookup.py) instead of ~12 row gathers."""
     from raytracingproject_tpu.ops import lookup as lk
     n = ray_o.shape[0]
     prim = jnp.maximum(hit["prim"], 0)

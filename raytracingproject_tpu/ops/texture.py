@@ -4,7 +4,7 @@ kernel_cpu_image.h samplers; kernel/svm/svm_noise.h, svm_voronoi.h).
 Image data lives in a packed store (models/image.py ImageManager): one
 (slots, Hmax, Wmax, 4) float32 array. Shader nodes reference slots with
 *static* Python ints, so slot indexing is a static slice and only the
-(u, v) gather is dynamic — the XLA-friendly layout for TPU.
+(u, v) gather is dynamic — the XLA-friendly layout.
 """
 
 from __future__ import annotations

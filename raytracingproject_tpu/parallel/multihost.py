@@ -1,13 +1,13 @@
 """Multi-host distribution (capability ref: device/device_network.{h,cpp}
 NetworkDevice TCP RPC + DeviceServer + app/cycles_server.cpp:31, and the
 resumable-chunk partitioning of blender_python.cpp:871-947 — redesigned
-TPU-native).
+on jax.distributed).
 
 The reference scales across machines with a boost::asio RPC that
 mirrors every Device virtual over TCP and steals tiles back through the
-master's TileManager. On TPU pods the transport is the platform's own
-job fabric instead: hosts join ONE jax.distributed process group
-(coordinator service + collectives over DCN/Gloo); each host renders a
+master's TileManager. Here the transport is JAX's own: hosts join ONE
+jax.distributed process group (coordinator service + collectives); each
+host (or each process, one per GPU) renders a
 disjoint SAMPLE RANGE of the whole frame — the reference's own
 multi-process partitioning — and partial accumulation buffers combine
 either
@@ -35,10 +35,13 @@ import numpy as np
 
 
 def initialize(coordinator_address=None, num_processes=None,
-               process_id=None):
-    """Join the process group (idempotent). On a real multi-host TPU
-    job the three args come from the scheduler and may all be None
-    (jax auto-detects); tests pass them explicitly."""
+               process_id=None, local_device_ids=None):
+    """Join the process group (idempotent). Outside a cluster scheduler
+    that JAX detects, pass the coordinator ("localhost:<port>" on one
+    machine), the process count and this process's id. Processes that
+    share a machine each take their own GPU through local_device_ids
+    (e.g. [process_id]); without it every process would open, and
+    reserve memory on, every card of the machine."""
     import jax
     if getattr(initialize, "_done", False):
         return
@@ -52,6 +55,8 @@ def initialize(coordinator_address=None, num_processes=None,
         kwargs["num_processes"] = int(num_processes)
     if process_id is not None:
         kwargs["process_id"] = int(process_id)
+    if local_device_ids is not None:
+        kwargs["local_device_ids"] = [int(i) for i in local_device_ids]
     try:
         jax.distributed.initialize(**kwargs)
     except RuntimeError as e:
@@ -141,7 +146,7 @@ class MultiHostSession:
 
 
 # ---------------------------------------------------------------------------
-# Dynamic work distribution (VERDICT r03 missing #1): the static ranges
+# Dynamic work distribution: the static ranges
 # above give every host 1/N of the samples regardless of speed — a 2x
 # slower host halves the fleet's effective rate. Here host 0 runs a
 # sample-chunk QUEUE and hands chunks out as workers finish (capability

@@ -2,7 +2,7 @@
 kernel_id_passes.h kernel_write_id_slots + util_murmurhash.cpp).
 
 Redesigned for the wavefront renderer: instead of in-kernel id-slot
-writes (a scatter per sample, hostile to the TPU layout), the Session
+writes (a scatter per sample inside the wavefront), the Session
 renders 1-sample chunks when cryptomatte is enabled and folds each
 chunk's first-hit id plane into a host-side top-K (id, count)
 accumulator — exact coverage, no device scatters.

@@ -28,8 +28,7 @@ class SessionParams:
                  progressive_refine_chunk=16, use_mesh=False,
                  shard_mode="pixel", time_limit=0.0,
                  range_start_sample=-1, range_num_samples=-1,
-                 background=True, device_retries=2,
-                 denoise_offload=True):
+                 background=True, denoise_offload=True):
         self.samples = samples
         self.tile_size = tile_size
         self.progressive = progressive
@@ -40,8 +39,6 @@ class SessionParams:
         self.range_start_sample = range_start_sample
         self.range_num_samples = range_num_samples
         self.background = background
-        # transient device-fault retries per chunk (0 = fail fast)
-        self.device_retries = device_retries
         # heterogeneous offload: pin denoise to the last local device
         # when more than one exists (parallelism strategy 7)
         self.denoise_offload = denoise_offload
@@ -247,15 +244,16 @@ class Session:
             data = aux_np[name]
             self.buffers.buffer[ys, xs, off:off + ch] += data[:, :ch]
 
-    def _get_render_fn(self, num_samples):
+    def _get_render_fn(self, num_samples, args):
+        """The compiled render function for this chunk size and lane
+        count. Compiled ahead of time so the compile time and the
+        compiler's memory analysis land in self.stats."""
+        import time as _time
         import jax
         from raytracingproject_tpu.ops import integrator as integ
-        key = num_samples
+        key = (num_samples, args[0].shape[0])
         if key not in self._render_fns:
             kg = self._kg
-            # path regeneration keeps lanes occupied; aux/light passes
-            # merge per sample inside the regen loop too
-            use_regen = True
             branched = int(kg["kint"]["method"]) == 1
             if branched:
                 branch = max(int(self.scene.integrator.diffuse_samples),
@@ -268,12 +266,16 @@ class Session:
                     return integ.render_samples_branched(
                         kg, px, py, pidx, start, num_aa, branch)
             else:
-                renderer = integ.render_samples_regen if use_regen \
-                    else integ.render_samples
-
+                # path regeneration keeps lanes occupied; aux/light
+                # passes merge per sample inside the regen loop too
                 def fn(px, py, pidx, start):
-                    return renderer(kg, px, py, pidx, start, num_samples)
-            self._render_fns[key] = jax.jit(fn)
+                    return integ.render_samples_regen(
+                        kg, px, py, pidx, start, num_samples)
+            t0 = _time.monotonic()
+            compiled = jax.jit(fn).lower(*args).compile()
+            self.stats.compile_time += _time.monotonic() - t0
+            self.stats.compiled_memory = compiled.memory_analysis()
+            self._render_fns[key] = compiled
         return self._render_fns[key]
 
     def _render_pixel_list(self, xs, ys, start_sample, num_samples):
@@ -287,8 +289,8 @@ class Session:
         px = jnp.asarray(xs_p, jnp.int32)
         py = jnp.asarray(ys_p, jnp.int32)
         pidx = py * self.buffers.params.full_width + px
-        fn = self._get_render_fn(num_samples)
-        out = fn(px, py, pidx, jnp.uint32(start_sample))
+        args = (px, py, pidx, jnp.uint32(start_sample))
+        out = self._get_render_fn(num_samples, args)(*args)
         if len(out) == 3:
             L, A, aux = out
             aux = {k: np.asarray(v)[:n] for k, v in aux.items()}
@@ -296,41 +298,6 @@ class Session:
             L, A = out
             aux = {}
         return np.asarray(L)[:n], np.asarray(A)[:n], aux
-
-    def _render_pixel_list_retry(self, xs, ys, start_sample, num_samples):
-        """Failure recovery around the device dispatch (SURVEY §5: the
-        reference only propagates device errors through Progress and
-        cancels, session.cpp:250-263; here transient device faults —
-        tunnel drops, TPU watchdog resets — are retried with the
-        compiled-fn cache dropped so the kernel re-jits against a fresh
-        executable). Deterministic sampling makes the retry exact: the
-        chunk re-renders the SAME sample range, so no statistics skew.
-        Non-device Python errors propagate immediately."""
-        retries = int(getattr(self.params, "device_retries", 2))
-        last = None
-        for attempt in range(retries + 1):
-            try:
-                return self._render_pixel_list(xs, ys, start_sample,
-                                               num_samples)
-            except CancelledError:
-                raise
-            except Exception as e:  # device/runtime faults only
-                name = type(e).__name__
-                transient = "XlaRuntimeError" in name \
-                    or "InternalError" in name \
-                    or "UNAVAILABLE" in str(e) or "INTERNAL" in str(e) \
-                    or "DEADLINE_EXCEEDED" in str(e)
-                if not transient or attempt >= retries:
-                    raise
-                last = e
-                self.stats.device_retries = \
-                    getattr(self.stats, "device_retries", 0) + 1
-                log.log_error("device error (attempt %d/%d), retrying "
-                              "chunk: %s", attempt + 1, retries, e)
-                self.progress.set_status(
-                    "Rendering", f"device error, retry {attempt + 1}")
-                self._render_fns = {}   # force re-jit on a fresh client
-        raise last  # unreachable
 
     # --- adaptive sampling (ref: kernel_adaptive_sampling.h redesigned
     # as host-side pixel-list compaction between sample chunks) ---
@@ -359,7 +326,7 @@ class Session:
         use_mesh = self.params.use_mesh
         if use_mesh:
             from raytracingproject_tpu.parallel.mesh import (
-                make_device_mesh, render_frame_sharded)
+                make_device_mesh, render_frame_sharded, sharded_render_fn)
             mesh = make_device_mesh()
 
         # adaptive sampling state
@@ -388,11 +355,17 @@ class Session:
             for tile in ts.tiles:
                 self.progress.check_cancel()
                 if use_mesh:
+                    key = ("mesh", ts.num_samples, self.params.shard_mode)
+                    if key not in self._render_fns:
+                        self._render_fns[key] = sharded_render_fn(
+                            self._kg, ts.num_samples, mesh,
+                            self.params.shard_mode)
                     L, A = render_frame_sharded(
                         self._kg, tile.w, tile.h, ts.num_samples, mesh=mesh,
                         sample_start=ts.start_sample,
                         mode=self.params.shard_mode,
-                        full_width=self.buffers.params.full_width)
+                        full_width=self.buffers.params.full_width,
+                        fn=self._render_fns[key])
                     self.buffers.buffer[tile.y:tile.y + tile.h,
                                         tile.x:tile.x + tile.w, 0:3] \
                         += np.asarray(L)
@@ -415,7 +388,7 @@ class Session:
                     ys, xs = active[0][in_tile], active[1][in_tile]
                     if len(ys) == 0:
                         continue
-                L, A, aux = self._render_pixel_list_retry(
+                L, A, aux = self._render_pixel_list(
                     xs, ys, ts.start_sample, ts.num_samples)
                 self.buffers.buffer[ys, xs, 0:3] += L
                 self.buffers.buffer[ys, xs, 3] += A
@@ -461,6 +434,7 @@ class Session:
         total, rt = self.progress.get_time()
         self.stats.render_time = rt
         self.stats.samples_rendered = self.progress.pixel_samples
+        self.stats.collect_device_memory()
         log.vlog(1, "render done: %.2fs total, %.2fs render", total, rt)
         if self.write_render_cb is not None:
             self.write_render_cb(
@@ -624,8 +598,8 @@ class Session:
         """Per-shader DEVICE-time attribution (ref: util_profiling.h
         per-shader histograms surfaced in render/session.cpp:1205-1211).
 
-        The reference samples worker threads; the TPU analog times each
-        shader's masked full-wavefront eval in its own dispatch over a
+        The reference samples worker threads; here each shader's masked
+        full-wavefront eval is timed in its own dispatch over a
         representative batch (real camera-ray hits, so the texture/prim
         mix matches the scene). Results land in stats.shader_times and
         full_report() names the most expensive shaders."""

@@ -1,6 +1,6 @@
 """Tile manager (ref: render/tile.cpp TileManager).
 
-On TPU the natural work unit is the whole-frame wavefront, so tiles are
+The natural work unit is the whole-frame wavefront, so tiles are
 for (a) bounding device memory on huge frames, (b) progressive viewport
 updates, (c) multi-host frame splits. The manager keeps the reference's
 contract: tile generation with ordering strategies (center/left-right/

@@ -1,24 +1,58 @@
 """Minimal OpenEXR codec (capability ref: the reference links OpenEXR
 via OIIO for multilayer output — render/image_oiio.cpp and the
 session's EXR writers; independent implementation of the public OpenEXR
-2.0 file format spec, scanline, uncompressed).
+2.0 file format spec, single-part scanline).
 
 Good enough for production interchange of render passes: float32 (and
 half on write) channels, single-part scanline images, multilayer via
-dotted channel names ("Combined.R", "crypto_object.00.R", ...). Any
-EXR-aware tool (Blender, Nuke, oiiotool) reads these files; the reader
-accepts what the writer emits (NO_COMPRESSION, FLOAT/HALF).
+dotted channel names ("Combined.R", "crypto_object.00.R", ...), with
+NO_COMPRESSION, ZIPS (one scanline per chunk) or ZIP (16 scanlines per
+chunk) through the standard library's zlib. Any EXR-aware tool
+(Blender, Nuke, oiiotool) reads these files.
 """
 
 from __future__ import annotations
 
 import struct
+import zlib
 
 import numpy as np
 
 _MAGIC = b"\x76\x2f\x31\x01"
 _VERSION = struct.pack("<I", 2)
 _PT_HALF, _PT_FLOAT = 1, 2
+# compression attribute values and scanlines per chunk
+COMP_NONE, COMP_ZIPS, COMP_ZIP = 0, 2, 3
+_COMP_BY_NAME = {"none": COMP_NONE, "zips": COMP_ZIPS, "zip": COMP_ZIP}
+_LINES_PER_CHUNK = {COMP_NONE: 1, COMP_ZIPS: 1, COMP_ZIP: 16}
+
+
+def _zip_pack(raw):
+    """The spec's ZIP transform (ImfZip.cpp): split even and odd bytes
+    into two planes, delta-encode, deflate. Stored raw when deflate
+    does not shrink the chunk."""
+    b = np.frombuffer(raw, np.uint8)
+    t = np.concatenate([b[0::2], b[1::2]]).astype(np.int16)
+    d = t.copy()
+    d[1:] = (t[1:] - t[:-1] + 128) & 0xFF
+    z = zlib.compress(d.astype(np.uint8).tobytes())
+    return z if len(z) < len(raw) else raw
+
+
+def _zip_unpack(data, nbytes):
+    """Inverse of _zip_pack for a chunk of `nbytes` uncompressed bytes."""
+    if len(data) >= nbytes:       # stored raw
+        return data[:nbytes]
+    d = np.frombuffer(zlib.decompress(data), np.uint8).astype(np.int64)
+    if d.size != nbytes:
+        raise ValueError("corrupt ZIP chunk")
+    d[1:] -= 128
+    t = (np.cumsum(d) & 0xFF).astype(np.uint8)
+    half = (nbytes + 1) // 2
+    raw = np.empty(nbytes, np.uint8)
+    raw[0::2] = t[:half]
+    raw[1::2] = t[half:]
+    return raw.tobytes()
 
 
 def _attr(name, typ, data):
@@ -39,20 +73,8 @@ def _chlist(channels, pixel_type):
 def write_exr(path, channels, half=False, compression="zip"):
     """channels: {name: (H, W) float32}; all same shape. Layered names
     use dots ("Combined.R"). half=True stores 16-bit floats.
-
-    The native C++ codec (native/exr_codec.cpp) handles the hot path
-    and ZIP compression; this Python body is the portable fallback
-    (uncompressed) and the parity twin the native codec is tested
-    against. compression: "zip" | "zips" | "none"."""
-    try:
-        from raytracingproject_tpu import native as nat
-        comp = {"none": nat.EXR_COMP_NONE, "zips": nat.EXR_COMP_ZIPS,
-                "zip": nat.EXR_COMP_ZIP}[compression]
-        if nat.exr_write_native(path, channels, half=half,
-                                compression=comp):
-            return path
-    except ImportError:  # pragma: no cover
-        pass
+    compression: "zip" | "zips" | "none"."""
+    comp = _COMP_BY_NAME[compression]
     names = sorted(channels)
     if not names:
         raise ValueError("no channels")
@@ -62,11 +84,11 @@ def write_exr(path, channels, half=False, compression="zip"):
         if a.shape != (h, w):
             raise ValueError(f"channel {n} shape {a.shape} != {(h, w)}")
     ptype = _PT_HALF if half else _PT_FLOAT
-    psize = 2 if half else 4
+    dtype = np.float16 if half else np.float32
 
     header = b""
     header += _attr("channels", "chlist", _chlist(names, ptype))
-    header += _attr("compression", "compression", b"\0")  # NO_COMPRESSION
+    header += _attr("compression", "compression", bytes([comp]))
     box = struct.pack("<iiii", 0, 0, w - 1, h - 1)
     header += _attr("dataWindow", "box2i", box)
     header += _attr("displayWindow", "box2i", box)
@@ -77,20 +99,24 @@ def write_exr(path, channels, half=False, compression="zip"):
     header += _attr("screenWindowWidth", "float", struct.pack("<f", 1.0))
     header += b"\0"
 
-    line_bytes = w * psize * len(names)
-    data_start = (len(_MAGIC) + len(_VERSION) + len(header) + 8 * h)
-    offsets = [data_start + y * (8 + line_bytes) for y in range(h)]
-
+    # (H, C, W): a chunk's bytes are its scanlines, each line holding
+    # the channels one after another
+    planes = np.stack([arrs[n] for n in names], axis=1).astype(dtype)
+    lpc = _LINES_PER_CHUNK[comp]
+    chunks = []
+    for y0 in range(0, h, lpc):
+        raw = planes[y0:y0 + lpc].tobytes()
+        data = raw if comp == COMP_NONE else _zip_pack(raw)
+        chunks.append(struct.pack("<iI", y0, len(data)) + data)
+    pos = len(_MAGIC) + len(_VERSION) + len(header) + 8 * len(chunks)
+    offsets = []
+    for c in chunks:
+        offsets.append(pos)
+        pos += len(c)
     with open(path, "wb") as f:
         f.write(_MAGIC + _VERSION + header)
-        f.write(struct.pack(f"<{h}Q", *offsets))
-        for y in range(h):
-            f.write(struct.pack("<iI", y, line_bytes))
-            for n in names:
-                row = arrs[n][y]
-                if half:
-                    row = row.astype(np.float16)
-                f.write(row.tobytes())
+        f.write(struct.pack(f"<{len(chunks)}Q", *offsets))
+        f.write(b"".join(chunks))
     return path
 
 
@@ -118,18 +144,10 @@ def _parse_chlist(data):
 
 
 def read_exr(path):
-    """Read a single-part scanline EXR with HALF/FLOAT channels —
-    NO_COMPRESSION, ZIP, or ZIPS via the native codec; the Python body
-    below reads the uncompressed subset as the portable fallback.
-    Returns {channel_name: (H, W) float32}."""
-    try:
-        from raytracingproject_tpu import native as nat
-        out = nat.exr_read_native(path)
-        if out is not None:
-            return out
-    except ImportError:  # pragma: no cover
-        pass
-    buf = open(path, "rb").read()
+    """Read a single-part scanline EXR with HALF/FLOAT channels,
+    NO_COMPRESSION, ZIPS or ZIP. Returns {channel_name: (H, W) float32}."""
+    with open(path, "rb") as f:
+        buf = f.read()
     if buf[:4] != _MAGIC:
         raise ValueError("not an EXR file")
     version = struct.unpack_from("<I", buf, 4)[0]
@@ -137,29 +155,36 @@ def read_exr(path):
         raise NotImplementedError(
             "tiled/deep/multi-part EXR not supported")
     attrs, pos = _read_attrs(buf, 8)
-    if attrs["compression"][1][0] != 0:
-        raise NotImplementedError(
-            "only NO_COMPRESSION files supported (got "
-            f"{attrs['compression'][1][0]})")
+    comp = attrs["compression"][1][0]
+    if comp not in _LINES_PER_CHUNK:
+        raise NotImplementedError(f"compression {comp} not supported")
     x0, y0, x1, y1 = struct.unpack("<iiii", attrs["dataWindow"][1])
     w, h = x1 - x0 + 1, y1 - y0 + 1
     chans = _parse_chlist(attrs["channels"][1])
-    offsets = struct.unpack_from(f"<{h}Q", buf, pos)
+    for n, ptype in chans:
+        if ptype not in (_PT_HALF, _PT_FLOAT):
+            raise NotImplementedError(f"pixel type {ptype}")
+    line_bytes = w * sum(2 if p == _PT_HALF else 4 for _, p in chans)
+    lpc = _LINES_PER_CHUNK[comp]
+    offsets = struct.unpack_from(f"<{-(-h // lpc)}Q", buf, pos)
     out = {n: np.empty((h, w), np.float32) for n, _ in chans}
-    for yi, off in enumerate(offsets):
+    for off in offsets:
         y, nbytes = struct.unpack_from("<iI", buf, off)
-        p = off + 8
-        for n, ptype in chans:        # alphabetical in-file order
-            if ptype == _PT_FLOAT:
-                row = np.frombuffer(buf, np.float32, w, p)
-                p += 4 * w
-            elif ptype == _PT_HALF:
-                row = np.frombuffer(buf, np.float16, w, p).astype(
-                    np.float32)
-                p += 2 * w
-            else:
-                raise NotImplementedError(f"pixel type {ptype}")
-            out[n][y - y0] = row
+        ny = min(lpc, y0 + h - y)
+        data = buf[off + 8:off + 8 + nbytes]
+        if len(data) != nbytes:
+            raise ValueError("truncated EXR chunk")
+        want = ny * line_bytes
+        if comp != COMP_NONE:
+            data = _zip_unpack(data, want)
+        if len(data) != want:
+            raise ValueError("EXR chunk size mismatch")
+        p = 0
+        for yy in range(ny):
+            for n, ptype in chans:        # alphabetical in-file order
+                dt = np.float16 if ptype == _PT_HALF else np.float32
+                out[n][y - y0 + yy] = np.frombuffer(data, dt, w, p)
+                p += w * np.dtype(dt).itemsize
     return out
 
 

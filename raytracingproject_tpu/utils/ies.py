@@ -2,7 +2,7 @@
 (ref: src/util/util_ies.cpp IESFile — re-implemented from the IESNA
 LM-63 spec; the device side uses a fixed-resolution resampled grid
 instead of the reference's per-file angle tables so the kernel lookup
-is a single wide-row fetch, TPU-friendly).
+is a single wide-row fetch).
 
 The grid is normalized to peak 1.0; lamp `strength` scales the peak,
 so swapping profiles keeps exposure stable.

@@ -1,7 +1,9 @@
 """Image input/output (ref: render/image_oiio.cpp, render/merge.cpp).
 
-The reference uses OpenImageIO + OpenEXR. Here: PNG/JPEG/TGA/TIFF/BMP
-via PIL for LDR, native codecs for the HDR formats OIIO covers —
+The reference uses OpenImageIO + OpenEXR. Here: 8-bit PNG through the
+standard library (zlib + struct, below), JPEG/TGA/TIFF/BMP through PIL
+where it is installed, codecs of our own for the HDR formats OIIO
+covers —
 OpenEXR (utils/exr.py), Radiance RGBE .hdr and Portable FloatMap .pfm
 (below) — and a self-contained multilayer float format (.npz with a
 manifest) standing in for multilayer EXR — it round-trips every render
@@ -12,12 +14,141 @@ path (ref: render/merge.cpp ImageMerger) needs.
 from __future__ import annotations
 
 import json
+import struct
+import zlib
+
 import numpy as np
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+# PNG color type by channel count: gray, gray+alpha, RGB, RGBA
+_PNG_COLOR = {1: 0, 2: 4, 3: 2, 4: 6}
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _png_chunk(tag, data):
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def encode_png(arr):
+    """(H, W) or (H, W, C) uint8, C in 1..4 -> PNG file bytes
+    (8-bit, no interlace, filter 0 on every row)."""
+    arr = np.asarray(arr)
+    if arr.dtype != np.uint8:
+        raise ValueError(f"PNG encoder takes uint8, got {arr.dtype}")
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    h, w, c = arr.shape
+    if c not in _PNG_COLOR:
+        raise ValueError(f"PNG takes 1-4 channels, got {c}")
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          arr.reshape(h, w * c)], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOR[c], 0, 0, 0)
+    return (_PNG_SIG + _png_chunk(b"IHDR", ihdr)
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _png_chunk(b"IEND", b""))
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    if pa <= pb and pa <= pc:
+        return a
+    return b if pb <= pc else c
+
+
+def _unfilter(data, h, stride, bpp):
+    """Undo the five PNG scanline filters -> (h, stride) uint8."""
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int64)
+    pos = 0
+    for y in range(h):
+        ftype = data[pos]
+        line = np.frombuffer(data, np.uint8, stride, pos + 1).astype(np.int64)
+        pos += 1 + stride
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:        # Sub: running sum per byte lane
+            cur = np.cumsum(np.pad(line, (0, (-stride) % bpp))
+                            .reshape(-1, bpp), axis=0).reshape(-1)[:stride]
+        elif ftype == 2:        # Up
+            cur = line + prev
+        elif ftype in (3, 4):   # Average, Paeth: left-dependent
+            cur = line.copy()
+            for x in range(stride):
+                a = cur[x - bpp] & 0xFF if x >= bpp else 0
+                b = prev[x]
+                if ftype == 3:
+                    cur[x] += (a + b) >> 1
+                else:
+                    c = prev[x - bpp] if x >= bpp else 0
+                    cur[x] += _paeth(a, b, c)
+        else:
+            raise ValueError(f"bad PNG filter type {ftype}")
+        cur = cur & 0xFF
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def decode_png(blob):
+    """PNG file bytes -> (H, W, C) uint8 or uint16 array. Reads bit
+    depths 8 and 16 (and 8-bit palette images), no interlace."""
+    if blob[:8] != _PNG_SIG:
+        raise ValueError("not a PNG file")
+    pos, idat, plte, trns, hdr = 8, [], None, None, None
+    while pos < len(blob):
+        n, tag = struct.unpack_from(">I4s", blob, pos)
+        data = blob[pos + 8:pos + 8 + n]
+        if len(data) != n:
+            raise ValueError("truncated PNG chunk")
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", data)
+        elif tag == b"IDAT":
+            idat.append(data)
+        elif tag == b"PLTE":
+            plte = np.frombuffer(data, np.uint8).reshape(-1, 3)
+        elif tag == b"tRNS":
+            trns = np.frombuffer(data, np.uint8)
+        elif tag == b"IEND":
+            break
+        pos += 12 + n
+    if hdr is None:
+        raise ValueError("PNG has no IHDR")
+    w, h, depth, ctype, _comp, _filt, interlace = hdr
+    if interlace:
+        raise NotImplementedError("interlaced PNG not supported")
+    if depth not in (8, 16) or (ctype == 3 and depth != 8):
+        raise NotImplementedError(f"PNG bit depth {depth} not supported")
+    c = _PNG_CHANNELS[ctype]
+    bpp = c * depth // 8
+    rows = _unfilter(zlib.decompress(b"".join(idat)), h, w * bpp, bpp)
+    if depth == 16:
+        return rows.view(">u2").reshape(h, w, c).astype(np.uint16)
+    img = rows.reshape(h, w, c)
+    if ctype == 3:
+        idx = img[..., 0]
+        rgb = plte[idx]
+        if trns is not None:
+            alpha = np.full(len(plte), 255, np.uint8)
+            alpha[:len(trns)] = trns[:len(plte)]
+            return np.concatenate([rgb, alpha[idx][..., None]], axis=-1)
+        return rgb
+    return img
+
+
+def _pil_image():
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("this image format needs Pillow (PIL), which "
+                          "is not installed; PNG, EXR, HDR and PFM need "
+                          "no extra package") from e
+    return Image
 
 
 def write_png(path, rgb, srgb=True):
     """Write (H, W, 3|4) float image in [0,inf) to an 8-bit PNG."""
-    from PIL import Image
     arr = np.asarray(rgb, np.float32)
     if srgb:
         a = np.clip(arr[..., :3], 0.0, None)
@@ -27,7 +158,8 @@ def write_png(path, rgb, srgb=True):
             a = np.concatenate([a, arr[..., 3:4]], axis=-1)
         arr = a
     arr = (np.clip(arr, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
-    Image.fromarray(arr).save(path)
+    with open(path, "wb") as f:
+        f.write(encode_png(arr))
 
 
 def read_image(path):
@@ -47,10 +179,15 @@ def read_image(path):
             if key in layers:
                 return layers[key].astype(np.float32)
         return next(iter(layers.values())).astype(np.float32)
-    from PIL import Image
-    img = Image.open(path)
-    arr = np.asarray(img).astype(np.float32)
-    if arr.dtype == np.uint8 or arr.max() > 1.0 + 1e-6:
+    if str(path).lower().endswith(".png"):
+        with open(path, "rb") as f:
+            raw = decode_png(f.read())
+    else:
+        raw = np.asarray(_pil_image().open(path))
+    arr = raw.astype(np.float32)
+    if raw.dtype == np.uint16:
+        arr = arr / 65535.0
+    elif raw.dtype == np.uint8 or arr.max() > 1.0 + 1e-6:
         arr = arr / 255.0
     if arr.ndim == 2:
         arr = arr[..., None]

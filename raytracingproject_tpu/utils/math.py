@@ -1,6 +1,6 @@
 """Vector math over batched (..., 3) arrays.
 
-TPU-native analog of the reference float3/float4 math headers
+Analog of the reference float3/float4 math headers
 (ref: util/util_math_float3.h, util/util_math.h). Instead of a scalar
 float3 type, every helper operates on arrays whose last axis is the
 vector axis, so the same code path serves a single vector, an (N, 3) SoA
@@ -163,13 +163,12 @@ def sqr(x):
 
 
 # --- exact small-matrix transforms -----------------------------------
-# Batched (..., 3, 3) @ (..., 3, 1) matmuls lower to bf16 MXU passes on
-# TPU at default precision — measured 1.3e-3 relative error in camera
-# ray directions, enough to shift silhouettes by ~0.05 px (the round-2
-# RMSE debugging found light-edge coverage off by 6x). Geometry
-# transforms therefore use explicit component math: exact f32 on the
-# VPU, fuses with neighbors, and faster than an MXU round-trip for
-# tiny contractions.
+# A batched (..., 3, 3) @ (..., 3, 1) float32 matmul at default
+# precision may run in TF32 on the GPU (about three decimal digits; a
+# reduced-precision matmul once measured 1.3e-3 relative error in
+# camera ray directions, enough to shift silhouettes by ~0.05 px).
+# Geometry transforms therefore use explicit component math: exact
+# f32 elementwise ops that fuse with their neighbours.
 
 def mat34_point(m, p):
     """(..., 3, 4) affine transform applied to points (..., 3)."""

@@ -5,8 +5,8 @@ instead of a hardcoded ``jnp.float32``. Production leaves FT = float32.
 The accuracy twin (tools/rmse_twin.py) flips it to float64 and re-traces
 the *same* integrator over the *same* f32 scene data with the *same*
 sample sequence, so the f32-vs-f64 image difference is pure rounding
-bias with no Monte-Carlo noise floor — the methodology VERDICT r2 asked
-for to demonstrate the RMSE <= 1e-3 accuracy target (ref analog: the
+bias with no Monte-Carlo noise floor — the methodology that demonstrates
+the RMSE <= 1e-3 accuracy target (ref analog: the
 golden-image harness in blender/tests/python/modules/render_report.py,
 which compares against a trusted renderer; here the trusted renderer is
 the integrator itself at f64).

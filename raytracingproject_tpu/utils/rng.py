@@ -4,7 +4,7 @@ render/jitter.cpp).
 The reference ships three pattern generators: table-driven Sobol
 (render/sobol.cpp — a ~21k-line direction-number table), progressive
 multi-jitter PMJ02 tables (render/jitter.cpp) and CMJ (kernel_jitter.h).
-On TPU a table-light design wins: we implement **hash-based
+A table-light design suits wavefronts: we implement **hash-based
 Owen-scrambled Sobol** (Burley 2020, "Practical Hash-based Owen
 Scrambling") — 4 Sobol dimensions generated at import time from the
 standard Joe–Kuo primitive-polynomial data, padded to arbitrary
@@ -186,8 +186,7 @@ def _sobol_eval(dim, index):
     mat = SOBOL_MATRICES[dim]
     for j in range(32):
         bit = (index >> _np_u32(j)) & _np_u32(1)
-        # select, not multiply: integer multiplies are the slow path on
-        # the TPU VPU; select is single-issue
+        # select, not multiply: a select is one cheap op per bit
         result = result ^ xp.where(bit != 0, _np_u32(int(mat[j])),
                                    _np_u32(0))
     return result
@@ -344,7 +343,7 @@ def cmj_2d(sample_index, dim_pair, rng_hash, num_samples):
 # tests assert directly. Runtime behavior matches the reference's:
 # table row chosen per (dimension, pixel) hash, Cranley-Patterson
 # rotation decorrelates beyond the table period. Costs one gather per
-# batch (docs/PERF.md) — opt-in via integrator.sampling_pattern.
+# batch — opt-in via integrator.sampling_pattern.
 # ---------------------------------------------------------------------------
 
 PMJ02_NUM_PATTERNS = 16

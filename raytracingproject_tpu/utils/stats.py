@@ -2,9 +2,11 @@
 util/util_profiling.h Profiler, util/util_stats.h memory Stats).
 
 The reference samples worker threads at 1 ms into per-shader/object
-histograms; on TPU the analog is per-stage wall-clock scopes around the
+histograms; here the analog is per-stage wall-clock scopes around the
 host-driven pipeline (scene sync, BVH build, upload, per-chunk device
-time) plus device memory accounting of the flattened scene.
+time), device memory accounting of the flattened scene, the render
+kernels' compile time and compiled memory, and the device's peak
+memory.
 """
 
 from __future__ import annotations
@@ -78,6 +80,10 @@ class RenderStats:
         self.samples_rendered = 0
         self.render_time = 0.0
         self.sync_time = 0.0
+        # ahead-of-time compiles of the render kernels (Session)
+        self.compile_time = 0.0
+        self.compiled_memory = None    # jax CompiledMemoryStats
+        self.peak_device_bytes = None  # None where the device keeps none
         # per-shader device-time attribution (Session.profile_shaders;
         # ref: util_profiling.h per-shader histograms)
         self.shader_times = {}
@@ -90,6 +96,33 @@ class RenderStats:
             elif isinstance(arr, np.ndarray):
                 self.mem.add(name, arr.nbytes)
 
+    def collect_device_memory(self):
+        """Peak bytes the process's arrays held on its first local
+        device (the allocator's own count, not what it reserved)."""
+        import jax
+        ms = jax.local_devices()[0].memory_stats()
+        self.peak_device_bytes = None if ms is None \
+            else ms.get("peak_bytes_in_use")
+
+    def device_report(self):
+        """Sync, compile and render times (render without the compile
+        it waited for), the device's peak memory and the compiler's
+        memory analysis of the last render kernel."""
+        parts = [f"sync {self.sync_time:.2f}s",
+                 f"compile {self.compile_time:.2f}s",
+                 f"render {max(self.render_time - self.compile_time, 0.0):.2f}s"]
+        if self.peak_device_bytes is not None:
+            parts.append(f"peak device memory "
+                         f"{_human(self.peak_device_bytes)}")
+        cm = self.compiled_memory
+        if cm is not None:
+            parts.append(
+                f"compiled: args {_human(cm.argument_size_in_bytes)} "
+                f"out {_human(cm.output_size_in_bytes)} "
+                f"temp {_human(cm.temp_size_in_bytes)} "
+                f"code {_human(cm.generated_code_size_in_bytes)}")
+        return ", ".join(parts)
+
     def full_report(self):
         parts = [self.mem.full_report()]
         if self.samples_rendered:
@@ -97,7 +130,7 @@ class RenderStats:
                 f"Rendered {self.samples_rendered} pixel-samples in "
                 f"{self.render_time:.2f}s "
                 f"({self.samples_rendered / max(self.render_time, 1e-9) / 1e6:.2f}"
-                f" Msamples/s); sync {self.sync_time:.2f}s")
+                f" Msamples/s); {self.device_report()}")
         if self.shader_times:
             parts.append("Device shader cost (per masked wavefront "
                          "eval):")

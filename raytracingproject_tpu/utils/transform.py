@@ -99,9 +99,9 @@ def look_at(position, look, up):
 
 def _xp(*arrays):
     """np for pure-host inputs, jnp when any operand is a jax array —
-    the component math below must NOT use batched `@`: on TPU it
-    lowers to bf16 MXU passes (measured 1.3e-3 error in ray
-    directions; see utils/math.py mat34_point)."""
+    the component math below must NOT use batched `@`: at default
+    precision a float32 matmul may run in TF32 on the GPU (see
+    utils/math.py mat34_point)."""
     import jax
     return jnp if any(isinstance(a, jax.Array) for a in arrays) else np
 
@@ -219,8 +219,8 @@ def motion_interpolate(decomp_a, decomp_b, t):
     sm = ((1.0 - tt) * decomp_a[..., 7:16] + tt * decomp_b[..., 7:16])
     sm = sm.reshape(sm.shape[:-1] + (3, 3))
     rot = quat_to_matrix(q)
-    # precision='highest': TPU default matmul precision is bf16-ish, which
-    # breaks the fp32 accuracy contract for transforms.
+    # precision='highest': the default float32 matmul may run in TF32
+    # on the GPU, which breaks the fp32 accuracy contract for transforms.
     m = jnp.matmul(rot, sm, precision="highest")
     return jnp.concatenate([m, trans[..., None]], axis=-1)
 

@@ -16,8 +16,8 @@ third-party code). Scope:
 
 Grids are returned **dense** (numpy (nx, ny, nz), index order x, y, z)
 over the active bounding box — the host-voxelized representation the
-TPU volume path already consumes (ops/texture.py sample_grid3d); VDB's
-sparse tree is a CPU pointer structure with no TPU analog, so density
+device volume path already consumes (ops/texture.py sample_grid3d); VDB's
+sparse tree is a CPU pointer structure with no wavefront analog, so density
 is resolved at load time, exactly like the reference bakes VDB leaves
 into dense tiles for CUDA textures when NanoVDB is off.
 

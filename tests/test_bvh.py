@@ -1,6 +1,6 @@
 """BVH build + traversal golden tests (ref test model: the reference has
 no kernel unit tests and relies on image tests — we add traversal goldens
-because the TPU traversal is novel code)."""
+because the wavefront traversal is novel code)."""
 
 import numpy as np
 import jax
@@ -323,8 +323,8 @@ class TestRefit:
 
 
 class TestStackDepth:
-    """Traversal stack sizing (VERDICT round-1 weak #8: the fixed
-    48-entry stack silently dropped entries on deep trees; now the
+    """Traversal stack sizing (a fixed 48-entry stack would silently
+    drop entries on deep trees; the
     scene packer computes the requirement with bb.tree_depth and the
     traversal allocates exactly that)."""
 

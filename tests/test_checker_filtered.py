@@ -4,8 +4,8 @@ sample away from cell edges, (2) be Lipschitz-continuous across an
 edge — an eps position perturbation moves it O(eps/width), never O(1)
 (the decision-flip noise the r03 RMSE run measured on
 textured_instanced), and (3) integrate to the exact cell average.
-Ref: svm_checker.h point sampler; the filtering is a TPU-native
-addition (documented divergence)."""
+Ref: svm_checker.h point sampler; the filtering is an addition of
+this renderer (documented divergence)."""
 
 import numpy as np
 import jax.numpy as jnp

@@ -1,5 +1,5 @@
 """Native curve (hair) intersection — ray-facing ribbon segments
-(ref: kernel/geom/geom_curve_intersect.h; TPU redesign: dense segment
+(ref: kernel/geom/geom_curve_intersect.h; redesign: dense segment
 sweep in ops/intersect.py intersect_curves_ribbon, merged after the
 triangle pass)."""
 

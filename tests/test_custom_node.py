@@ -1,5 +1,5 @@
 """Custom shader-node authoring API (docs/CUSTOM_NODES.md — the
-TPU-native answer to the reference's OSL user-shader capability,
+answer to the reference's OSL user-shader capability,
 render/osl.cpp): subclassing ShaderNode with a NODE_NAME must register
 the node for BOTH the Python graph API and the XML reader with no
 further wiring, and the node must trace into the production integrator

@@ -119,8 +119,8 @@ class TestClusterMotion:
     def test_cluster_matches_brute_bitexact(self):
         """Deform-motion clusters (per-tri shutter deltas lerped by ray
         time) must pick the same winners as the dense lerp path — same
-        watertight math, same lerp (VERDICT r2 item 8: deforming
-        geometry escapes the brute path)."""
+        watertight math, same lerp (deforming geometry escapes the
+        brute path)."""
         import jax
         from raytracingproject_tpu.bvh import build as bvh_build
         from raytracingproject_tpu.bvh import clusters as cl_mod

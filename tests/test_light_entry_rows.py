@@ -80,10 +80,9 @@ def test_render_parity_with_and_without_snapshot():
                      if not k.startswith("le_")}
     L2, _ = jax.jit(lambda: integ.render_samples(
         kg2, px, py, py * 32 + px, jnp.uint32(0), 1))()
-    # sample_light itself is bit-exact (tests above) and the full
-    # render matches bit-exactly on TPU; on CPU the two jit graphs
-    # fuse/FMA-contract differently around the (now-absent) one-hot
-    # fetch, so exact zeros at clamped-cosine boundaries pick up
-    # ~1e-5 of cross-graph noise. Tight tolerance, not equality.
+    # sample_light itself is bit-exact (tests above); the two jit
+    # graphs fuse/FMA-contract differently around the (now-absent)
+    # one-hot fetch, so exact zeros at clamped-cosine boundaries pick
+    # up ~1e-5 of cross-graph noise. Tight tolerance, not equality.
     np.testing.assert_allclose(np.asarray(L1), np.asarray(L2),
                                atol=2e-5, rtol=0.0)

@@ -1,5 +1,5 @@
 """Material-sorted shading tests (ref: kernel/split/
-kernel_shader_sort.h — TPU analog shade.eval_shaders_sorted)."""
+kernel_shader_sort.h — here shade.eval_shaders_sorted)."""
 
 import numpy as np
 import jax

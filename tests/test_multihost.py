@@ -18,6 +18,20 @@ import numpy as np
 from raytracingproject_tpu.parallel import multihost as mh
 
 
+class TestInitialize:
+    def test_local_device_ids_pass_through(self, monkeypatch):
+        """Processes sharing a machine each own one card."""
+        import jax
+        seen = {}
+        monkeypatch.setattr(jax.distributed, "initialize",
+                            lambda **kw: seen.update(kw))
+        monkeypatch.setattr(mh.initialize, "_done", False, raising=False)
+        mh.initialize("localhost:1234", 4, 2, local_device_ids=[2])
+        assert seen == {"coordinator_address": "localhost:1234",
+                        "num_processes": 4, "process_id": 2,
+                        "local_device_ids": [2]}
+
+
 class TestSampleRanges:
     def test_partition_covers_all_samples(self):
         for total in (1, 7, 64, 129):
@@ -63,8 +77,7 @@ class TestTwoProcess:
         repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         script = tmp_path / "worker.py"
         script.write_text(_WORKER.format(repo=repo, port=19847))
-        env = {k: v for k, v in os.environ.items()
-               if k != "PYTHONPATH"}
+        env = dict(os.environ)
         procs = [subprocess.Popen(
             [sys.executable, str(script), str(i), str(tmp_path)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -208,12 +221,12 @@ class TestTwoProcessDynamic:
     def test_straggler_rebalances(self, tmp_path):
         """One worker 2.5 s/chunk slower: the queue must shift chunks to
         the fast worker (the static split's wall is set by the slow
-        host; VERDICT r03 missing #1) and the merge must still equal the
+        host) and the merge must still equal the
         single-process render."""
         repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         script = tmp_path / "dyn_worker.py"
         script.write_text(_DYN_WORKER.format(repo=repo))
-        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env = dict(os.environ)
         procs = [subprocess.Popen(
             [sys.executable, str(script), str(i), str(tmp_path)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -1,17 +1,17 @@
-"""Tile-shared Pallas cluster traversal vs the XLA shortlist path
-(ops/pallas_cluster.py vs ops/cluster_intersect.py — same watertight
-math, so hits must agree; ref kernel/bvh/bvh_traversal.h:34-229).
+"""Triton cluster walk vs the XLA shortlist (ops/cluster_walk_gpu.py vs
+ops/cluster_intersect.py — same watertight math and the same visiting
+order, so hits must agree; ref kernel/bvh/bvh_traversal.h:34-229).
 
-Runs the kernel in interpreter mode off-TPU: semantics only; the
-compiled path is exercised by the TPU bench."""
+Runs the kernel in interpret mode on the CPU: semantics only. The
+compiled kernel is checked on the card by chip_smoke.py (phase 4) and by
+the `gpu`-marked test in tests/test_cluster_walk_gpu.py."""
 
 import numpy as np
 import jax.numpy as jnp
-import pytest
 
 from raytracingproject_tpu.app import examples
 from raytracingproject_tpu.ops import cluster_intersect as ci
-from raytracingproject_tpu.ops import pallas_cluster as pc
+from raytracingproject_tpu.ops import cluster_walk_gpu as cwg
 from raytracingproject_tpu.models import object as ob
 
 
@@ -32,7 +32,7 @@ def _rand_rays(n, seed, lo=(-300, -300, -300), hi=(900, 900, 900)):
     return jnp.asarray(o), jnp.asarray(d)
 
 
-def _compare(kg, ds, o, d, shadow=False, seed=0):
+def _compare(kg, ds, o, d, shadow=False):
     n = o.shape[0]
     tmin = jnp.full((n,), 1e-4, jnp.float32)
     tmax = jnp.full((n,), 1e30, jnp.float32)
@@ -42,12 +42,13 @@ def _compare(kg, ds, o, d, shadow=False, seed=0):
         ds["cluster_bounds"], ds["cluster_table"],
         int(kg["cluster_tris"]), o, d, tmin, tmax,
         visibility=vis, shadow_any_hit=shadow, has_instances=has_inst)
-    got = pc.intersect_clusters_pallas(
+    got = cwg.intersect_clusters_gpu(
         ds["cluster_bounds"], ds["cluster_table"],
-        int(kg["cluster_tris"]), o, d, tmin, tmax, vis,
+        int(kg["cluster_tris"]), o, d, tmin, tmax, visibility=vis,
         shadow_any_hit=shadow, has_instances=has_inst, interpret=True)
     ref = {k: np.asarray(v) for k, v in ref.items()}
     got = {k: np.asarray(v) for k, v in got.items()}
+    cwg.check_parity(ref, got, shadow)
     if shadow:
         # any-hit: only blocked-ness is contractual
         np.testing.assert_array_equal(ref["prim"] >= 0, got["prim"] >= 0)
@@ -102,111 +103,12 @@ class TestParity:
             int(kg["cluster_tris"]), o, d, tmin, tmax, visibility=vis,
             has_instances=bool(kg.get("has_instances", False)),
             time=time, has_motion=has_motion)
-        got = pc.intersect_clusters_pallas(
+        got = cwg.intersect_clusters_gpu(
             ds["cluster_bounds"], ds["cluster_table"],
-            int(kg["cluster_tris"]), o, d, tmin, tmax, vis,
+            int(kg["cluster_tris"]), o, d, tmin, tmax, visibility=vis,
             has_instances=bool(kg.get("has_instances", False)),
             time=time, has_motion=has_motion, interpret=True)
         np.testing.assert_array_equal(np.asarray(ref["t"]),
                                       np.asarray(got["t"]))
         np.testing.assert_array_equal(np.asarray(ref["prim"]),
                                       np.asarray(got["prim"]))
-
-
-class TestOcclusionDual:
-    """Dual-reduction occlusion walk vs the dense sweep
-    (ops/pallas_cluster.py occlusion_clusters_pallas vs
-    ops/intersect.py intersect_brute_occlusion; ROADMAP 1d)."""
-
-    def _setup(self):
-        from raytracingproject_tpu.ops import intersect as isect
-        scene = examples.volume_sss_scene(32, 32, spp=2)
-        scene.device_update()
-        kg = scene.make_kernel_globals()
-        ds = kg["dscene"]
-        assert "cluster_boundary" in ds
-        return kg, ds, isect
-
-    def _dual(self, kg, ds, isect, o, d, tmaxc, tmaxa, seed=0):
-        import jax.numpy as jnp
-        from raytracingproject_tpu.ops import pallas_cluster as pc2
-        n = o.shape[0]
-        tmin = jnp.full((n,), 1e-5, jnp.float32)
-        ref = isect.intersect_brute_occlusion(
-            ds["tri_verts_world"], ds["prim_object_packed"],
-            ds["prim_is_boundary"], o, d, tmin,
-            tmax_closest=tmaxc, tmax_any=tmaxa,
-            visibility_closest=jnp.full((n,), ob.PATH_RAY_CAMERA,
-                                        jnp.uint32),
-            visibility_any=jnp.full((n,), ob.PATH_RAY_SHADOW,
-                                    jnp.uint32),
-            object_visibility=ds["object_visibility"])
-        got = pc2.occlusion_clusters_pallas(
-            ds["cluster_bounds"], ds["cluster_table"],
-            ds["cluster_boundary"], int(kg["cluster_tris"]), o, d, tmin,
-            tmax_closest=tmaxc, tmax_any=tmaxa,
-            vis_closest=int(ob.PATH_RAY_CAMERA),
-            vis_any=int(ob.PATH_RAY_SHADOW),
-            has_instances=bool(kg.get("has_instances", False)),
-            interpret=True)
-        return [np.asarray(x) for x in ref], [np.asarray(x) for x in got]
-
-    def test_random_rays_parity(self):
-        kg, ds, isect = self._setup()
-        o, d = _rand_rays(1024, 11, lo=(-3, -3, -3), hi=(3, 3, 3))
-        n = o.shape[0]
-        tmaxc = jnp.full((n,), 1e30, jnp.float32)
-        tmaxa = jnp.full((n,), 1e30, jnp.float32)
-        (rb, ro, rblk), (gb, go, gblk) = self._dual(
-            kg, ds, isect, o, d, tmaxc, tmaxa)
-        np.testing.assert_array_equal(rblk, gblk)
-        # same watertight math; FMA-contraction ulp drift only
-        np.testing.assert_allclose(rb, gb, rtol=1e-5)
-        np.testing.assert_allclose(ro, go, rtol=1e-5)
-        assert (rb < 1e30).any() and (ro < 1e30).any() and rblk.any()
-
-    def test_per_lane_tmax_and_disabled_lanes(self):
-        kg, ds, isect = self._setup()
-        o, d = _rand_rays(512, 12, lo=(-3, -3, -3), hi=(3, 3, 3))
-        n = o.shape[0]
-        rng = np.random.default_rng(13)
-        # a mix of real ranges and disabled (1e-5) lanes, closest and
-        # any-hit ranges differing, exactly as the NEE call site builds
-        tmaxc = jnp.asarray(np.where(rng.uniform(size=n) < 0.3, 1e-5,
-                                     rng.uniform(0.5, 8.0, n)),
-                            jnp.float32)
-        tmaxa = jnp.asarray(np.where(rng.uniform(size=n) < 0.3, 1e-5,
-                                     rng.uniform(0.5, 8.0, n)),
-                            jnp.float32)
-        (rb, ro, rblk), (gb, go, gblk) = self._dual(
-            kg, ds, isect, o, d, tmaxc, tmaxa)
-        np.testing.assert_array_equal(rblk, gblk)
-        np.testing.assert_allclose(rb, gb, rtol=1e-5)
-        np.testing.assert_allclose(ro, go, rtol=1e-5)
-
-    def test_volume_render_end_to_end_parity(self):
-        """Full volume render with the Pallas dual sweep forced vs the
-        dense default: images must agree (ulp-level t drift can move
-        individual stochastic samples, so compare loosely per pixel
-        and tightly in the mean)."""
-        import jax
-        from raytracingproject_tpu.ops import integrator as integ
-        scene = examples.volume_sss_scene(16, 16, spp=4)
-        scene.device_update()
-        kg = scene.make_kernel_globals()
-        yy, xx = np.mgrid[0:16, 0:16]
-        px = jnp.asarray(xx.reshape(-1), jnp.int32)
-        py = jnp.asarray(yy.reshape(-1), jnp.int32)
-        pidx = py * 16 + px
-
-        def render(kg2):
-            L, _ = jax.jit(lambda a, b, c: integ.render_samples(
-                kg2, a, b, c, 0, 4))(px, py, pidx)
-            return np.asarray(L).reshape(16, 16, 3) / 4
-
-        dense = render({**kg, "pallas_occlusion": False})
-        pall = render({**kg, "pallas_occlusion": True,
-                       "pallas_interpret": True})
-        assert np.isfinite(pall).all()
-        assert abs(dense.mean() - pall.mean()) < 2e-3 + 0.01 * dense.mean()
-        np.testing.assert_allclose(pall, dense, atol=0.02, rtol=0.05)

@@ -1,25 +1,24 @@
-"""Surface-NEE shadow rays through the Pallas dual-reduction walk.
+"""Surface-NEE shadow rays through the cluster walk.
 
 integrator._shadow_blocked on cluster scenes routes the pure any-hit
-through pallas_cluster.occlusion_clusters_pallas with the closest
-window disabled (tmax_closest = tmin). The boolean must match the
-traversal-walk shadow path exactly (ref contract:
-kernel/kernel_shadow.h shadow_blocked opaque fast path).
+through the traversal dispatch; on the GPU that is the Triton cluster
+walk (ops/cluster_walk_gpu.py, run here in interpret mode). The boolean
+must match the dense brute-force sweep exactly (ref contract:
+kernel/kernel_shadow.h shadow_blocked opaque fast path), and a render
+through the walk must match the render through the XLA shortlist.
 """
 import numpy as np
 import jax.numpy as jnp
 
 from raytracingproject_tpu.app import examples
 from raytracingproject_tpu.ops import integrator as integ
-from raytracingproject_tpu.models import object as ob
 
 
 def _glossy_kg():
     scene = examples.cornell_box(32, 32, spp=2, spheres="glossy")
     scene.device_update()
     kg = scene.make_kernel_globals()
-    assert "cluster_boundary" in kg["dscene"], \
-        "cluster_boundary must pack for every cluster scene now"
+    assert "cluster_bounds" in kg["dscene"]
     return kg
 
 
@@ -40,10 +39,9 @@ def test_shadow_blocked_parity_surface_scene():
     # realistic NEE mix: disabled lanes (tmax=tmin) + finite segments
     tmax = jnp.asarray(np.where(rng.uniform(size=n) < 0.3, 1e-5,
                                 rng.uniform(10.0, 900.0, n)), jnp.float32)
-    ref = integ._shadow_blocked(
-        {**kg, "pallas_occlusion": False}, o, d, tmin, tmax)
+    ref = integ._shadow_blocked({**kg, "use_brute": True}, o, d, tmin, tmax)
     got = integ._shadow_blocked(
-        {**kg, "pallas_occlusion": True, "pallas_interpret": True},
+        {**kg, "use_brute": False, "pallas_interpret": True},
         o, d, tmin, tmax)
     np.testing.assert_array_equal(np.asarray(ref), np.asarray(got))
     assert np.asarray(ref).any() and not np.asarray(ref).all()
@@ -53,7 +51,7 @@ def test_glossy_render_end_to_end_parity():
     import jax
     scene = examples.cornell_box(16, 16, spp=4, spheres="glossy")
     scene.device_update()
-    kg = scene.make_kernel_globals()
+    kg = {**scene.make_kernel_globals(), "use_brute": False}
     yy, xx = np.mgrid[0:16, 0:16]
     px = jnp.asarray(xx.reshape(-1), jnp.int32)
     py = jnp.asarray(yy.reshape(-1), jnp.int32)
@@ -64,9 +62,8 @@ def test_glossy_render_end_to_end_parity():
             kg2, a, b, c, 0, 4))(px, py, pidx)
         return np.asarray(L).reshape(16, 16, 3) / 4
 
-    walk = render({**kg, "pallas_occlusion": False})
-    occl = render({**kg, "pallas_occlusion": True,
-                   "pallas_interpret": True})
-    assert np.isfinite(occl).all()
-    # same any-hit boolean; only cross-graph FMA noise can differ
-    np.testing.assert_allclose(occl, walk, atol=1e-4, rtol=1e-4)
+    xla = render({**kg, "pallas_clusters": False})
+    walk = render({**kg, "pallas_interpret": True})
+    assert np.isfinite(walk).all()
+    # same hits; only cross-graph FMA noise can differ
+    np.testing.assert_allclose(walk, xla, atol=1e-4, rtol=1e-4)

@@ -160,7 +160,7 @@ class TestRng:
         assert abs(c01) < 0.05 and abs(c02) < 0.05
 
     def test_jax_numpy_parity(self):
-        """TPU/CPU kernels and host golden tests must agree bit-exactly."""
+        """Device kernels and host golden tests must agree bit-exactly."""
         idx = np.arange(257, dtype=np.uint32)
         un, vn = rng.sobol_burley_2d(idx, np.uint32(5), np.uint32(42))
         uj, vj = jax.jit(rng.sobol_burley_2d)(

@@ -14,9 +14,9 @@ import numpy as np
 def main():
     import jax
     import jax.numpy as jnp
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(__file__), "..",
-                                   ".jax_cache"))
+    from raytracingproject_tpu.utils.compile_cache import \
+        enable_compile_cache
+    enable_compile_cache()
     from raytracingproject_tpu.app import examples
     from raytracingproject_tpu.ops import intersect as isect
     from raytracingproject_tpu.ops import cluster_intersect as ci

@@ -12,9 +12,9 @@ import numpy as np
 def main():
     import jax
     import jax.numpy as jnp
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(__file__), "..",
-                                   ".jax_cache"))
+    from raytracingproject_tpu.utils.compile_cache import \
+        enable_compile_cache
+    enable_compile_cache()
     from raytracingproject_tpu.bvh import build as bvh_build
     from raytracingproject_tpu.bvh import clusters as cl_mod
     from raytracingproject_tpu.ops import cluster_intersect as ci

@@ -12,9 +12,9 @@ import numpy as np
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(__file__), "..",
-                                   ".jax_cache"))
+    from raytracingproject_tpu.utils.compile_cache import \
+        enable_compile_cache
+    enable_compile_cache()
     from raytracingproject_tpu.app import examples
     from raytracingproject_tpu.models import (Scene, Object, Light,
                                               Shader, ShaderGraph,

@@ -92,10 +92,9 @@ def main():
     args = ap.parse_args()
 
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(_ROOT, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    from raytracingproject_tpu.utils.compile_cache import \
+        enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     import optax
     from raytracingproject_tpu.ops import kpcn
@@ -176,7 +175,7 @@ def main():
     path = kpcn.save_params(params, args.out)
     print(f"saved {path}", flush=True)
 
-    # ---- held-out A/B vs NLM (the r5 verdict's acceptance shape) ----
+    # ---- held-out A/B vs NLM (the acceptance shape for KPCN) ----
     def mse(a, b):
         return float(np.mean((np.asarray(a) - np.asarray(b)) ** 2))
 

@@ -35,9 +35,9 @@ def heavy_shader(name, seed):
 def main():
     import jax
     import jax.numpy as jnp
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(__file__), "..",
-                                   ".jax_cache"))
+    from raytracingproject_tpu.utils.compile_cache import \
+        enable_compile_cache
+    enable_compile_cache()
     from raytracingproject_tpu.app import examples
     from raytracingproject_tpu.ops import shade as shade_ops
     from tests.test_material_sort import _wavefront_sd

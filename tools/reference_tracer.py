@@ -199,7 +199,7 @@ def render_reference(scene, spp, seed=7, log_every=0):
         d /= np.linalg.norm(d, axis=1, keepdims=True)
         o = np.tile(c2w[:, 3], (n, 1)) + d * sd["nearclip"]
 
-        tput = np.ones((n, 3))
+        thru = np.ones((n, 3))
         L = np.zeros((n, 3))
         alive = np.ones(n, bool)
         prev_pdf = np.zeros(n)
@@ -225,7 +225,7 @@ def render_reference(scene, spp, seed=7, log_every=0):
                     0.0) * pmf_by_prim[pi]
                 w = prev_pdf ** 2 / np.maximum(prev_pdf ** 2 + pdf_l ** 2,
                                                1e-300)
-            L += np.where(found[:, None], tput * emis * w[:, None], 0.0)
+            L += np.where(found[:, None], thru * emis * w[:, None], 0.0)
 
             # NEE
             usel = rng.random(n)
@@ -260,7 +260,7 @@ def render_reference(scene, spp, seed=7, log_every=0):
             dist2 = np.maximum(np.linalg.norm(to2, axis=1), 1e-300)
             sh_blocked = _occluded(tri, o_sh, to2 / dist2[:, None],
                                    np.where(can, dist2 * (1 - 1e-5), 0.0))
-            contrib = tput * f * emission[li] \
+            contrib = thru * f * emission[li] \
                 * (cos_s * wl / np.maximum(pdf_nee, 1e-300))[:, None]
             L += np.where((can & ~sh_blocked)[:, None], contrib, 0.0)
 
@@ -269,7 +269,7 @@ def render_reference(scene, spp, seed=7, log_every=0):
             # diffuse bounce
             bu, bv = rng.random(n), rng.random(n)
             nd, pdf = _cos_hemisphere(Ngf, bu, bv)
-            tput = tput * albedo[pi]          # f * cos / pdf for Lambert
+            thru = thru * albedo[pi]          # f * cos / pdf for Lambert
             alive = found & (pdf > 0) & (albedo[pi].max(axis=1) > 0)
             prev_pdf = pdf
             o = P + Ngf * 1e-6 * np.maximum(t, 1.0)[:, None]

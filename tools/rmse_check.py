@@ -1,4 +1,4 @@
-"""Accuracy north-star: RMSE of the TPU renderer vs the independent
+"""Accuracy north-star: RMSE of the renderer vs the independent
 NumPy reference tracer (tools/reference_tracer.py) on the Cornell box.
 
 Both are unbiased estimators of the same transport, so the converged
@@ -26,34 +26,13 @@ W = H = 64
 
 
 def make_scene(seed=0):
-    from raytracingproject_tpu.app import examples
-    scene = examples.cornell_box(W, H, spp=128)
-    scene.integrator.set("sample_clamp_indirect", 0.0)
-    scene.integrator.set("seed", seed)
-    scene.film.set("filter_type", "box")
-    scene.film.set("filter_width", 1.0)
-    return scene
+    from raytracingproject_tpu.app import accuracy
+    return accuracy.converged_cornell_scene(W, H, spp=128, seed=seed)
 
 
 def render_ours(spp, seed=0):
-    import jax
-    import jax.numpy as jnp
-    from raytracingproject_tpu.ops import integrator as integ
-    scene = make_scene(seed)
-    scene.device_update()
-    kg = scene.make_kernel_globals()
-    yy, xx = np.mgrid[0:H, 0:W]
-    px = jnp.asarray(xx.reshape(-1), jnp.int32)
-    py = jnp.asarray(yy.reshape(-1), jnp.int32)
-    pidx = py * W + px
-    chunk = min(spp, 512)
-    fn = jax.jit(lambda a, b, c, s: integ.render_samples_regen(
-        kg, a, b, c, s, chunk))
-    acc = None
-    for i in range(spp // chunk):
-        L, A = fn(px, py, pidx, jnp.uint32(i * chunk))
-        acc = L if acc is None else acc + L
-    return np.asarray(acc).reshape(H, W, 3).astype(np.float64) / spp
+    from raytracingproject_tpu.app import accuracy
+    return accuracy.render_regen(make_scene(seed), spp, min(spp, 512))
 
 
 def rmse(a, b):

@@ -34,10 +34,9 @@ CONFIGS = {
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(_ROOT, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    from raytracingproject_tpu.utils.compile_cache import \
+        enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     from raytracingproject_tpu.app import examples
     from raytracingproject_tpu.ops import integrator as integ
